@@ -1,19 +1,24 @@
 """Profiling entry point of the port (counterpart of accunet_tpu/cli/profile.py).
 
     python -m accunet_tpu_torch.cli.profile --model ACC_UNet --img 224 --batch 8 \
-        [--dtype bfloat16] [--steps 5] [--device cuda]
+        [--dtype bfloat16] [--steps 5] [--device cuda] [--train]
 
-Runs the model in eval mode with seeded random weights on one CUDA device
-and prints, for one batch of 3-channel images of the given size:
+Runs the model with seeded random weights on one CUDA device, in eval mode
+(a forward per step) or with --train a train step (train-mode forward,
+weighted Dice+BCE, backward, Adam; float32 only), and prints, for one batch
+of 3-channel images of the given size:
   - the parameter count;
-  - ms per batch and img/s: CUDA events over --steps forwards after warm-up;
+  - ms per step and img/s: CUDA events over --steps steps after warm-up;
   - module spans: CUDA events in forward pre/post hooks on the model's
-    top-level modules, one forward;
-  - the port kernels' launches per forward (the wrappers' counters);
-  - torch.profiler over --steps forwards: the window per batch (CUDA events,
+    top-level modules, the forward of one step;
+  - the port kernels' launches per step (the wrappers' counters);
+  - torch.profiler over --steps steps: the window per step (CUDA events,
     profiler on), device busy time (union of the device kernel and copy
-    intervals) and its share of the window, device kernels per forward,
-    device time per kernel family and the top device kernels.
+    intervals) and its share of the profiler-off wall time above (the
+    profiler's own host cost stretches its window, not the kernels), device
+    kernels per step, device time per kernel family and the top device
+    kernels.
+fp32 runs with TF32 off in cuDNN and matmuls, as chip_smoke.py times it.
 Raises when CUDA is unavailable; it never profiles on the CPU.
 """
 
@@ -21,6 +26,7 @@ from __future__ import annotations
 
 import argparse
 import ast
+import contextlib
 from collections import defaultdict
 
 # device-kernel name fragment -> family (first match wins)
@@ -28,6 +34,7 @@ FAMILIES = (
     ("hanc_block_kernel", "hanc_block"),
     ("respath_level_kernel", "respath_level"),
     ("hanc_mix_kernel", "hanc_mix"),
+    ("dwconv_wgrad", "dwconv2d_wgrad"),
     ("batch_norm", "batchnorm"),
     ("bn_fw", "batchnorm"),
     ("gemm", "gemm/conv"),
@@ -71,6 +78,8 @@ def main(argv=None):
     ap.add_argument("--model-kwargs", default=None,
                     help="python dict literal of extra model kwargs")
     ap.add_argument("--device", default="cuda", help="CUDA device, e.g. cuda, cuda:1")
+    ap.add_argument("--train", action="store_true",
+                    help="profile a train step instead of a forward")
     args = ap.parse_args(argv)
 
     import torch
@@ -78,6 +87,7 @@ def main(argv=None):
     from torch.profiler import ProfilerActivity, profile
 
     from accunet_tpu_torch.models import build as build_model, init_parameters
+    from accunet_tpu_torch.ops.kernels.dwconv2d import dwconv2d_wgrad
     from accunet_tpu_torch.ops.kernels.hanc_block import hanc_block
     from accunet_tpu_torch.ops.kernels.hanc_mix import hanc_mix
     from accunet_tpu_torch.ops.kernels.respath import respath_level
@@ -85,34 +95,51 @@ def main(argv=None):
     device = torch.device(args.device)
     if device.type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: profiling needs an available CUDA device")
+    if args.train and args.dtype != "float32":
+        raise ValueError("--train profiles the float32 train step only")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     dtype = getattr(torch, args.dtype)
     kwargs = ast.literal_eval(args.model_kwargs) if args.model_kwargs else {}
     model = build_model(args.model, n_channels=3, n_classes=1, **kwargs)
     init_parameters(model, torch.Generator().manual_seed(0))
     model = model.to(device=device, dtype=dtype).eval()
-    x = torch.randn(args.batch, args.img, args.img, 3, device=device,
-                    generator=torch.Generator(device).manual_seed(1))
+    gen = torch.Generator(device).manual_seed(1)
+    x = torch.randn(args.batch, args.img, args.img, 3, device=device, generator=gen)
     n_params = sum(p.numel() for p in model.parameters())
+    kind = "train step" if args.train else "forward"
     print(f"model={args.model} input={args.batch}x{args.img}x{args.img}x3 "
-          f"{args.dtype} on {torch.cuda.get_device_name(device)}")
+          f"{args.dtype} {kind} on {torch.cuda.get_device_name(device)}, TF32 off")
     print(f"params: {n_params / 1e6:.2f} M")
+    if args.train:
+        from accunet_tpu_torch.train.engine import make_train_fns
+
+        fns = make_train_fns(model)
+        mask = (torch.rand(args.batch, args.img, args.img, 1, device=device, generator=gen)
+                > 0.5).float()
+
+        def step():
+            fns.train_step(fns.state, {"image": x, "mask": mask})
+    else:
+        def step():
+            model(x)
 
     def timed(n):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
         for _ in range(n):
-            model(x)
+            step()
         end.record()
         torch.cuda.synchronize(device)
         return start.elapsed_time(end) / n
 
-    with torch.inference_mode():
+    with contextlib.nullcontext() if args.train else torch.inference_mode():
         for _ in range(3):
-            model(x)
+            step()
         torch.cuda.synchronize(device)
         ms = timed(args.steps)
-        print(f"wall: {ms:.3f} ms/batch ({args.batch * 1e3 / ms:.1f} img/s), "
-              f"CUDA events over {args.steps} forwards")
+        print(f"wall: {ms:.3f} ms/step ({args.batch * 1e3 / ms:.1f} img/s), "
+              f"CUDA events over {args.steps} steps")
 
         spans, hooks = {}, []
         for name, mod in model.named_children():
@@ -125,24 +152,28 @@ def main(argv=None):
                 spans[name][1].record()
 
             hooks += [mod.register_forward_pre_hook(pre), mod.register_forward_hook(post)]
-        counters = {"hanc_block": hanc_block, "respath_level": respath_level, "hanc_mix": hanc_mix}
+        counters = {"hanc_block": hanc_block, "respath_level": respath_level,
+                    "hanc_mix": hanc_mix, "dwconv2d_wgrad": dwconv2d_wgrad}
         for fn in counters.values():
             fn.launches = 0
-        model(x)
+        step()
         torch.cuda.synchronize(device)
         for h in hooks:
             h.remove()
-        print("launches per forward: "
+        print(f"launches per {kind}: "
               + ", ".join(f"{k} {fn.launches}" for k, fn in counters.items()))
         span_ms = sorted(((s.elapsed_time(e), n) for n, (s, e) in spans.items()), reverse=True)
-        print("module spans (ms, one forward): "
+        print("module spans (ms, the forward of one step): "
               + ", ".join(f"{n} {t:.3f}" for t, n in span_ms)
               + f"; sum {sum(t for t, _ in span_ms):.3f}")
 
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             window = timed(args.steps)
 
-    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # device work only: the optimizer's step also shows as a device-side user
+    # annotation that spans the kernels it launches
+    dev_events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     intervals = [(e.time_range.start, e.time_range.end) for e in dev_events]
     busy = busy_us(intervals) / 1e3 / args.steps
     by_family, by_kernel = defaultdict(float), defaultdict(lambda: [0.0, 0])
@@ -150,15 +181,15 @@ def main(argv=None):
         by_family[kernel_family(e.name)] += (t - s) / 1e3 / args.steps
         by_kernel[e.name][0] += (t - s) / 1e3 / args.steps
         by_kernel[e.name][1] += 1
-    print(f"profiler: window {window:.3f} ms/batch, device busy {busy:.3f} ms "
-          f"({100 * busy / window:.1f}%), {len(dev_events) / args.steps:.0f} device "
-          f"kernels per forward")
+    print(f"profiler: device busy {busy:.3f} ms/step = {100 * busy / ms:.1f}% of the wall "
+          f"time without the profiler ({ms:.3f} ms); window with it {window:.3f} ms; "
+          f"{len(dev_events) / args.steps:.0f} device kernels per step")
     for fam, t in sorted(by_family.items(), key=lambda kv: -kv[1]):
         print(f"  {t:8.3f} ms  {fam}")
-    print("top device kernels (ms per forward, launches per forward):")
+    print("top device kernels (ms per step, launches per step):")
     for name, (t, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:15]:
         print(f"  {t:8.3f} ms  x{n / args.steps:4.0f}  {name[:100]}")
-    return {"ms_per_batch": ms, "window_ms": window, "busy_ms": busy,
+    return {"ms_per_batch": ms, "window_ms": window, "busy_ms": busy, "busy_share": busy / ms,
             "kernels_per_forward": len(dev_events) / args.steps,
             "families_ms": dict(by_family), "spans_ms": {n: t for t, n in span_ms}}
 

@@ -1,14 +1,18 @@
-"""Host batching: a copy of `BatchLoader` from accunet_tpu/data/loader.py.
+"""Host batching: copies of `BatchLoader` and `PrefetchLoader` from
+accunet_tpu/data/loader.py.
 
-A deterministic epoch iterator that shuffles with an explicit per-epoch seed,
-applies the joint transform with a per-(epoch, sample) Generator, and emits
-NHWC numpy batches; with pad_last it pads the final batch by wrapping and
-reports the true count. With process_count > 1 every process takes its
-contiguous slice of each global batch.
+BatchLoader is a deterministic epoch iterator that shuffles with an explicit
+per-epoch seed, applies the joint transform with a per-(epoch, sample)
+Generator, and emits NHWC numpy batches; with pad_last it pads the final
+batch by wrapping and reports the true count. With process_count > 1 every
+process takes its contiguous slice of each global batch. PrefetchLoader
+prepares the next batches on a background thread.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 from typing import Iterator
 
 import numpy as np
@@ -100,3 +104,64 @@ class BatchLoader:
                 "count": true_count,
             }
         self.epoch += 1
+
+
+class PrefetchLoader:
+    """Background-thread prefetch around any batch iterable: a daemon thread
+    runs the inner iterator and fills a bounded queue, so host-side decode and
+    augmentation overlap the device's work. Batches arrive in the inner
+    loader's order; an error in the inner loader is raised to the consumer."""
+
+    _END = object()
+
+    def __init__(self, loader, depth: int = 2):
+        self.loader = loader
+        self.depth = depth
+
+    def __len__(self):
+        return len(self.loader)
+
+    def set_epoch(self, epoch: int):
+        if hasattr(self.loader, "set_epoch"):
+            self.loader.set_epoch(epoch)
+
+    def __iter__(self):
+        q: "queue.Queue" = queue.Queue(maxsize=self.depth)
+        err = []
+        # a consumer may stop early (one peeked batch, an aborted epoch); a
+        # bare q.put would then block the worker forever, so every put polls
+        # this event and the generator's finally sets it
+        closed = threading.Event()
+
+        def _put(item) -> bool:
+            while not closed.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def worker():
+            try:
+                for batch in self.loader:
+                    if not _put(batch):
+                        return
+            except BaseException as e:  # surfaced on the consumer side
+                err.append(e)
+            finally:
+                _put(self._END)
+
+        t = threading.Thread(target=worker, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is self._END:
+                    break
+                yield item
+            t.join()
+            if err:
+                raise err[0]
+        finally:
+            closed.set()

@@ -13,17 +13,25 @@ prologue when both are fused;
 rspth1/rspth2 run the `respath_level` kernel; every other HANC layer with
 k >= 2 runs the `hanc_mix` kernel. At n_filts=32 the fused set is exactly the
 one the JAX package picks at s2d_levels=2 (n_filts*inv_fctr >= 96). In train
-mode every block takes the unfused path.
+mode every block takes the unfused path: every k >= 2 HANC layer still runs
+the `hanc_mix` kernel forward, and every HANCBlock's depthwise conv computes
+its weight gradient with the `dwconv2d_wgrad` kernel.
+
+`remat=True` (default off, as in JAX :73, :92-95) checkpoints each HANCBlock,
+ResPath and MLFC while gradients are recorded: their activations are
+recomputed in the backward instead of kept.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from accunet_tpu_torch.nn.acc_blocks import MLFC, HANCBlock, ResPath
+from accunet_tpu_torch.nn.acc_blocks import MLFC, BatchNorm, HANCBlock, ResPath
 from accunet_tpu_torch.ops.conv import conv1x1, conv_transpose_2x2
 from accunet_tpu_torch.ops.kernels.hanc_block import MAX_CIN
 from accunet_tpu_torch.ops.pooling import max_pool2d
@@ -41,13 +49,27 @@ class ConvTranspose2x2(nn.ConvTranspose2d):
         return conv_transpose_2x2(x, self.weight, self.bias)
 
 
+@contextlib.contextmanager
+def _frozen_stats(module: nn.Module):
+    """Keep `module`'s BatchNorms from updating their running statistics
+    (the recompute of a checkpointed block must not count the batch twice)."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.frozen_stats = True
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.frozen_stats = False
+
+
 class ACCUNet(nn.Module):
     def __init__(self, n_channels: int = 3, n_classes: int = 1, n_filts: int = 32,
                  variant: str = "base", final_sigmoid: bool = True,
-                 wide_decoder_block: bool = True):
+                 wide_decoder_block: bool = True, remat: bool = False):
         super().__init__()
         f = n_filts
-        self.n_classes, self.final_sigmoid = n_classes, final_sigmoid
+        self.n_classes, self.final_sigmoid, self.remat = n_classes, final_sigmoid, remat
         mode = {"base": "full", "lite": "lite", "w": "w"}[variant]
 
         def hanc(n_in, n_out, k, inv=3, level12=False, defer=False):
@@ -93,27 +115,34 @@ class ACCUNet(nn.Module):
         out_ch = n_classes if n_classes == 1 else n_classes + 1
         self.out = nn.Conv2d(f, out_ch, 1)
 
+    def _run(self, block: nn.Module, *args):
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(block, *args, use_reentrant=False,
+                              context_fn=lambda: (contextlib.nullcontext(), _frozen_stats(block)))
+        return block(*args)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x (B, H, W, n_channels), H and W divisible by 16 ->
         (B, H, W, out_ch) float32."""
+        r = self._run
         x = x.to(self.out.weight.dtype)
-        x2 = self.cnv12(self.cnv11(x))
-        x3 = self.cnv22(self.cnv21(max_pool2d(x2, 2)))
-        x4 = self.cnv32(self.cnv31(max_pool2d(x3, 2)))
-        x5 = self.cnv42(self.cnv41(max_pool2d(x4, 2)))
-        x6 = self.cnv52(self.cnv51(max_pool2d(x5, 2)))
+        x2 = r(self.cnv12, r(self.cnv11, x))
+        x3 = r(self.cnv22, r(self.cnv21, max_pool2d(x2, 2)))
+        x4 = r(self.cnv32, r(self.cnv31, max_pool2d(x3, 2)))
+        x5 = r(self.cnv42, r(self.cnv41, max_pool2d(x4, 2)))
+        x6 = r(self.cnv52, r(self.cnv51, max_pool2d(x5, 2)))
 
-        x2 = self.rspth1(x2)
-        x3 = self.rspth2(x3)
-        x4 = self.rspth3(x4)
-        x5 = self.rspth4(x5)
+        x2 = r(self.rspth1, x2)
+        x3 = r(self.rspth2, x3)
+        x4 = r(self.rspth3, x4)
+        x5 = r(self.rspth4, x5)
         for mlfc in (self.mlfc1, self.mlfc2, self.mlfc3):
-            x2, x3, x4, x5 = mlfc(x2, x3, x4, x5)
+            x2, x3, x4, x5 = r(mlfc, x2, x3, x4, x5)
 
-        x7 = self.cnv62(self.cnv61(torch.cat([self.up6(x6), x5], dim=-1)))
-        x8 = self.cnv72(self.cnv71(torch.cat([self.up7(x7), x4], dim=-1)))
-        x9 = self.cnv82(self.cnv81(torch.cat([self.up8(x8), x3], dim=-1)))
-        x10 = self.cnv92(self.cnv91(torch.cat([self.up9(x9), x2], dim=-1)))
+        x7 = r(self.cnv62, r(self.cnv61, torch.cat([self.up6(x6), x5], dim=-1)))
+        x8 = r(self.cnv72, r(self.cnv71, torch.cat([self.up7(x7), x4], dim=-1)))
+        x9 = r(self.cnv82, r(self.cnv81, torch.cat([self.up8(x8), x3], dim=-1)))
+        x10 = r(self.cnv92, r(self.cnv91, torch.cat([self.up9(x9), x2], dim=-1)))
 
         logits = conv1x1(x10, self.out.weight, self.out.bias)
         if self.n_classes == 1 and self.final_sigmoid:

@@ -8,8 +8,10 @@ a strict `load_state_dict`.
 Every block takes and returns NHWC tensors. In eval mode the level-1/2
 HANCBlocks and ResPaths built with `fused=True` run their fused kernels
 (ops/kernels), and every other HANC layer with k >= 2 runs the `hanc_mix`
-kernel; in train mode every block takes the unfused path of plain ops. On a
-CPU tensor each kernel wrapper runs its plain PyTorch version.
+kernel. In train mode every block takes the unfused path; its HANC layers
+still run `hanc_mix` forward (`HancMixFn`) and its depthwise convs take
+their weight gradient from the `dwconv2d_wgrad` kernel. On a CPU tensor each
+kernel wrapper runs its plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from torch import nn
 from accunet_tpu_torch.ops.activation import lrelu
 from accunet_tpu_torch.ops.conv import conv1x1, conv2d, depthwise_conv2d
 from accunet_tpu_torch.ops.kernels.hanc_block import HANCBlockWeights, fold, hanc_block
-from accunet_tpu_torch.ops.kernels.hanc_mix import hanc_mix, hanc_mix_reference
+from accunet_tpu_torch.ops.kernels.hanc_mix import HancMixFn
 from accunet_tpu_torch.ops.kernels.respath import respath_level
 from accunet_tpu_torch.ops.pooling import (
     avg_pool2d,
@@ -38,11 +40,19 @@ __all__ = [
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """BatchNorm2d (eps 1e-5, momentum 0.1) over the last axis of an NHWC
-    tensor (run on its channels_last NCHW view)."""
+    """BatchNorm over the last axis of an NHWC tensor (run on its
+    channels_last NCHW view), with flax's semantics (`batch_norm`,
+    accunet_tpu/nn/acc_blocks.py:98-105): eps 1e-5; in train mode it
+    normalises with the biased batch variance and updates
+    running = 0.9 * running + 0.1 * batch for the mean and the *biased*
+    variance, in fp32 (torch's BatchNorm2d would take the unbiased one).
+
+    `frozen_stats` skips that update; the model sets it while activation
+    checkpointing recomputes a block, so a step updates the statistics once."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
+        self.frozen_stats = False
 
     def scale_shift(self) -> tuple[torch.Tensor, torch.Tensor]:
         """The inference affine (scale', shift') in fp32."""
@@ -50,7 +60,21 @@ class BatchNorm(nn.BatchNorm2d):
         return s, self.bias.float() - self.running_mean.float() * s
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        xc = x.permute(0, 3, 1, 2)
+        if not self.training:
+            return super().forward(xc).permute(0, 2, 3, 1)
+        # batch statistics without running buffers; save_invstd is
+        # 1/sqrt(biased var + eps), so the stats need no second pass over x
+        y, mean, invstd = torch.native_batch_norm(xc, self.weight, self.bias, None, None,
+                                                  True, 0.0, self.eps)
+        if not self.frozen_stats:
+            with torch.no_grad():
+                var = invstd.to(self.running_var.dtype).pow(-2) - self.eps
+                mean = mean.to(self.running_mean.dtype)
+                self.running_mean.mul_(1 - self.momentum).add_(mean, alpha=self.momentum)
+                self.running_var.mul_(1 - self.momentum).add_(var, alpha=self.momentum)
+                self.num_batches_tracked.add_(1)
+        return y.permute(0, 2, 3, 1)
 
 
 class ChannelSELayer(nn.Module):
@@ -94,10 +118,9 @@ class HANCLayer(nn.Module):
         if self.k == 1:
             y = conv1x1(x, self.cnv.weight, self.cnv.bias)
         else:
-            mix = hanc_mix_reference if self.training else hanc_mix
             # the kernel takes NHWC-contiguous maps; a cuDNN conv upstream
             # may hand back another layout
-            y = mix(x.contiguous(), self.mix_weight(), self.cnv.bias, self.k)
+            y = HancMixFn.apply(x.contiguous(), self.mix_weight(), self.cnv.bias, self.k)
         return lrelu(self.bn(y))
 
 

@@ -11,6 +11,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from accunet_tpu_torch.ops.kernels.dwconv2d import DepthwiseConv2dFn
+
 
 def _same_pad(k: int) -> tuple[int, int]:
     # torch padding='same': odd kernels pad symmetrically, even kernels put
@@ -37,8 +39,9 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = No
 
 def depthwise_conv2d(x: torch.Tensor, weight: torch.Tensor,
                      bias: torch.Tensor | None = None) -> torch.Tensor:
-    """Depthwise 'SAME' convolution. weight (C, 1, kh, kw)."""
-    return conv2d(x, weight, bias, groups=x.shape[-1])
+    """Depthwise 'SAME' convolution, odd kernels. weight (C, 1, kh, kw). Its
+    weight gradient is the `dwconv2d_wgrad` kernel (ops/kernels/dwconv2d)."""
+    return DepthwiseConv2dFn.apply(x, weight, bias)
 
 
 def conv1x1(x: torch.Tensor, weight: torch.Tensor,

@@ -36,6 +36,7 @@ SIGNATURES = {
     "accunet_hanc_mix": [_P, _P, _P, _P] + [_I] * 7 + [_P],
     "accunet_respath_level": [_P] * 11 + [_I] * 6 + [_P],
     "accunet_hanc_block": [_P] * 14 + [_I] * 9 + [_P],
+    "accunet_dwconv2d_wgrad": [_P] * 4 + [_I] * 9 + [_P],
 }
 
 

@@ -29,8 +29,10 @@ from accunet_tpu_torch.ops.pooling import avg_pool2d, max_pool2d, upsample_neare
 def hanc_mix_reference(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                        k: int) -> torch.Tensor:
     """Plain PyTorch version: x (B,H,W,C), w (C, 2k-1, Cout), bias (Cout,).
-    Accumulates in fp32 like the kernel; returns x.dtype."""
-    xf, wf = x.float(), w.float()
+    Accumulates in fp32 like the kernel (float64 stays float64); returns
+    x.dtype."""
+    ct = torch.promote_types(x.dtype, torch.float32)
+    xf, wf = x.to(ct), w.to(ct)
     avg_maps, max_maps = [], []
     a = m = xf
     for _ in range(1, k):
@@ -45,7 +47,7 @@ def hanc_mix_reference(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     y = xf @ wf[:, 0, :]
     if acc is not None:
         y = y + upsample_nearest(acc, 2)
-    return (y + bias.float()).to(x.dtype)
+    return (y + bias.to(ct)).to(x.dtype)
 
 
 def hanc_mix(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, k: int) -> torch.Tensor:
@@ -75,3 +77,27 @@ def hanc_mix(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, k: int) -> to
 
 
 hanc_mix.launches = 0
+
+
+class HancMixFn(torch.autograd.Function):
+    """`hanc_mix` with a gradient. Forward: the kernel on a CUDA tensor, the
+    plain version on a CPU tensor. Backward: the VJP of the plain formula,
+    recomputed from the saved inputs, as JAX `_bwd` (hanc.py:183-186) does;
+    the TPU package has no backward kernel either."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, k):
+        ctx.save_for_backward(x, w, bias)
+        ctx.k = k
+        return hanc_mix(x, w, bias, k)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
+            y = hanc_mix_reference(*leaves, ctx.k)
+            wanted = [t for t, n in zip(leaves, need) if n]
+            grads = iter(torch.autograd.grad(y, wanted, g))
+        return (*(next(grads) if n else None for n in need), None)

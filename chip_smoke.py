@@ -14,8 +14,22 @@ From the root of a checkout, with one CUDA device:
      checks that every kernel launched there;
   5. compares the whole model on the GPU (kernels) with the CPU (plain
      versions) at batch 1, fp32;
-  6. times ACC_UNet b8 224x224 inference in fp32 and bf16 and each kernel
-     against its plain version (CUDA events, warm-up excluded).
+  6. checks the autograd functions of the train path on the card
+     (HancMixFn, DepthwiseConv2dFn) against the autograd of their plain
+     versions;
+  7. runs the train entry point (accunet_tpu_torch.cli.train --synthetic,
+     224x224, batch 8) for two epochs, then resumes it for a third, and
+     checks, counting the train steps and the validation forwards apart,
+     that every HANCBlock's depthwise backward launched dwconv2d_wgrad and
+     every k >= 2 HANC layer launched hanc_mix;
+  8. holds one train step of ACC_UNet (n_filts=32) on the GPU against the
+     same step on the CPU in float64: the loss, each BN statistic, each
+     depthwise weight gradient (against the plain wgrad of the step's own
+     inputs) and, coarsely, the gradients as a whole;
+  9. times ACC_UNet b8 224x224 inference in fp32 and bf16, its fp32 train
+     step, and each kernel against its plain version and, for the wgrad, the
+     one PyTorch call that computes the same function (CUDA events, warm-up
+     excluded), beside the least time the card could take for it.
 It prints a JSON line of the kernels, then as its last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 A failed phase raises, so the run exits non-zero and prints no result; so
@@ -33,6 +47,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -45,6 +60,10 @@ BF16_TOL = 1e-2
 # whole model, GPU (kernels) vs CPU (plain versions), fp32: relative error of
 # the logits and of the block outputs, absolute error of the probabilities
 MODEL_TOL = 1e-3
+# one train step, GPU vs CPU, fp32 (compare_train_step says how it is held)
+TRAIN_CMP_HW, TRAIN_TOL = 64, 1e-3
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 
 
 class SmokeError(RuntimeError):
@@ -80,9 +99,50 @@ def rel_err(got, want) -> tuple[float, float]:
     return err, err / max(float(want.abs().max()), 1e-30)
 
 
+class Case(NamedTuple):
+    """One kernel call at a main-path shape: `run` and `plain` are closures
+    over `args`; `flops` counts the operations the function needs."""
+    kernel: str
+    name: str
+    run: Callable
+    plain: Callable
+    args: tuple
+    flops: float
+    library: Callable | None = None
+
+
+def nbytes(obj) -> int:
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, (tuple, list)):
+        return sum(nbytes(o) for o in obj)
+    return 0
+
+
+def bound_ms(case: Case, out) -> tuple[float, str]:
+    """The least time the card could take: each input read once and each
+    output written once at 3.35 TB/s, or the operations at the fp32 CUDA-core
+    peak of 67 TFLOP/s (every kernel here computes in fp32 FMAs), whichever
+    is larger (H100 SXM data sheet)."""
+    t_bytes = (nbytes(case.args) + nbytes(out)) / HBM_BYTES_PER_S * 1e3
+    t_ops = case.flops / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def wgrad_library(x, g, k):
+    """The one PyTorch call that computes the depthwise weight gradient:
+    aten.convolution_backward with only the weight output (cuDNN)."""
+    c = x.shape[-1]
+    w = torch.empty(c, 1, k, k, device=x.device, dtype=x.dtype)
+    return torch.ops.aten.convolution_backward(
+        g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w, None, [1, 1], [(k - 1) // 2] * 2,
+        [1, 1], False, [0, 0], c, [False, True, False])[1]
+
+
 def kernel_cases(dev):
-    """(kernel name, case name, kernel fn, plain fn) at the main path's shapes,
-    as closures over random inputs of dtype dt."""
+    """Cases at the main path's shapes, as closures over random inputs of
+    dtype dt."""
+    from accunet_tpu_torch.ops.kernels import dwconv2d as DW
     from accunet_tpu_torch.ops.kernels import hanc_block as HB
     from accunet_tpu_torch.ops.kernels import hanc_mix as HM
     from accunet_tpu_torch.ops.kernels import respath as RP
@@ -100,6 +160,10 @@ def kernel_cases(dev):
                        rn(e, 2 * k - 1, cin, s=f(e)), rn(cin, s=0.1), rn(cin, cout, s=f(cin)),
                        rn(cout, s=0.1), bns)
 
+    def mix_flops(px, c, cout, k):
+        # x@w0 at full resolution, avg and max mixes at 1/4^i of the pixels
+        return 2 * px * c * cout * (1 + sum(2 / 4 ** i for i in range(1, k)))
+
     def cases(dt):
         out = []
         # HANCBlock bodies: cnv12, cnv22 (chained: cnv21's SE in the prologue), cnv91
@@ -109,9 +173,12 @@ def kernel_cases(dev):
             x, p = rn(B, hw, hw, cin).to(dt), block(cin, e, cout)
             pre = torch.stack([0.5 + rn(B, cin, s=0.1), rn(B, cin, s=0.1)], 1).contiguous() \
                 if chained else None
-            out.append(("hanc_block", name,
-                        lambda x=x, p=p, pre=pre: HB.hanc_block(x, p, 3, pre),
-                        lambda x=x, p=p, pre=pre: HB.hanc_block_reference(x, p, 3, pre)))
+            px = B * hw * hw  # expand, depthwise 3x3, HANC mix (k=3), project
+            flops = 2 * px * (cin * e + 9 * e + cin * cout) + mix_flops(px, e, cin, 3)
+            out.append(Case("hanc_block", name,
+                            lambda x=x, p=p, pre=pre: HB.hanc_block(x, p, 3, pre),
+                            lambda x=x, p=p, pre=pre: HB.hanc_block_reference(x, p, 3, pre),
+                            (x, tuple(p), pre), flops))
         # ResPath levels: rspth1 level 0 and a later level, rspth2 a later level
         for name, hw, c, prev in [("rspth1.level0", HW, NF, False), ("rspth1.level1", HW, NF, True),
                                   ("rspth2.level1", HW // 2, 2 * NF, True)]:
@@ -120,17 +187,28 @@ def kernel_cases(dev):
             if prev:
                 args += [rn(B, hw, hw, c).to(dt), torch.rand(B, c, generator=g, device=dev),
                          1 + rn(c, s=0.1), rn(c, s=0.1)]
-            out.append(("respath_level", name,
-                        lambda a=args: RP.respath_level(*a),
-                        lambda a=args: RP.respath_level_reference(*a)))
+            out.append(Case("respath_level", name,
+                            lambda a=args: RP.respath_level(*a),
+                            lambda a=args: RP.respath_level_reference(*a),
+                            tuple(args), 2 * B * hw * hw * 9 * c * c))
         # HANC mixes of the unfused blocks: cnv11 (E=9), cnv31, cnv61 (k=2), cnv72 (E=4352)
         for name, hw, c, cout, k in [("cnv11", HW, 9, 3, 3), ("cnv31", HW // 4, 6 * NF, 2 * NF, 3),
                                      ("cnv61", HW // 8, 48 * NF, 16 * NF, 2),
                                      ("cnv72", HW // 4, 136 * NF, 4 * NF, 3)]:
             args = [rn(B, hw, hw, c).to(dt), rn(c, 2 * k - 1, cout, s=1 / c ** 0.5),
                     rn(cout, s=0.1), k]
-            out.append(("hanc_mix", name, lambda a=args: HM.hanc_mix(*a),
-                        lambda a=args: HM.hanc_mix_reference(*a)))
+            out.append(Case("hanc_mix", name, lambda a=args: HM.hanc_mix(*a),
+                            lambda a=args: HM.hanc_mix_reference(*a),
+                            tuple(args[:3]), mix_flops(B * hw * hw, c, cout, k)))
+        # depthwise weight gradients of the train step: cnv12 (E=96), cnv52
+        # and cnv61 (E=1536), cnv72 (E=4352)
+        for name, hw, c in [("cnv12", HW, 3 * NF), ("cnv52", HW // 16, 48 * NF),
+                            ("cnv61", HW // 8, 48 * NF), ("cnv72", HW // 4, 136 * NF)]:
+            args = (rn(B, hw, hw, c).to(dt), rn(B, hw, hw, c).to(dt))
+            out.append(Case("dwconv2d_wgrad", name, lambda a=args: DW.dwconv2d_wgrad(*a, 3, 3),
+                            lambda a=args: DW.dwconv2d_wgrad_reference(*a, 3, 3),
+                            args, 2 * 9 * B * hw * hw * c,
+                            lambda a=args: wgrad_library(*a, 3)))
         return out
 
     return cases
@@ -141,7 +219,7 @@ def check_kernels(cases):
     reporting every disagreement."""
     worst, bad = {}, []
     for dt, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
-        for kname, cname, kern, plain in cases(dt):
+        for kname, cname, kern, plain, *_ in cases(dt):
             got = kern()
             torch.cuda.synchronize()
             want = plain()
@@ -211,6 +289,262 @@ def run_eval_cli(counters):
     return launches
 
 
+def check_autograd_fns(dev):
+    """Phase 6: the train path's autograd functions on the card at main-path
+    shapes, b8: DepthwiseConv2dFn (its dw from the wgrad kernel) against
+    autograd through cuDNN's grouped conv, HancMixFn (forward kernel,
+    recomputed plain backward) against autograd through its plain version."""
+    import torch.nn.functional as F
+
+    from accunet_tpu_torch.ops.kernels.dwconv2d import DepthwiseConv2dFn
+    from accunet_tpu_torch.ops.kernels.hanc_mix import HancMixFn, hanc_mix_reference
+
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def rn(*shape, s=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * s).requires_grad_(True)
+
+    checks = []
+    for name, hw, c in [("cnv12", HW, 3 * NF), ("cnv72", HW // 4, 136 * NF)]:
+        x, w, b = rn(B, hw, hw, c), rn(c, 1, 3, 3, s=1 / 3), rn(c, s=0.1)
+        gy = torch.randn(B, hw, hw, c, generator=g, device=dev)
+        got = torch.autograd.grad(DepthwiseConv2dFn.apply(x, w, b), (x, w, b), gy)
+        y = F.conv2d(x.permute(0, 3, 1, 2), w, b, padding=1, groups=c).permute(0, 2, 3, 1)
+        checks.append((f"DepthwiseConv2dFn {name}", got, torch.autograd.grad(y, (x, w, b), gy)))
+    for name, hw, c, cout, k in [("cnv31", HW // 4, 6 * NF, 2 * NF, 3),
+                                 ("cnv61", HW // 8, 48 * NF, 16 * NF, 2)]:
+        x, w, b = rn(B, hw, hw, c), rn(c, 2 * k - 1, cout, s=1 / c ** 0.5), rn(cout, s=0.1)
+        gy = torch.randn(B, hw, hw, cout, generator=g, device=dev)
+        got = torch.autograd.grad(HancMixFn.apply(x, w, b, k), (x, w, b), gy)
+        want = torch.autograd.grad(hanc_mix_reference(x, w, b, k), (x, w, b), gy)
+        checks.append((f"HancMixFn {name}", got, want))
+    bad = []
+    for name, got, want in checks:
+        rel = max(rel_err(a, b_)[1] for a, b_ in zip(got, want))
+        ok = rel <= FP32_TOL
+        log(f"  {'ok ' if ok else 'BAD'} {name:24s} grads rel {rel:.3e} (tol {FP32_TOL:g})")
+        if not ok:
+            bad.append(name)
+    if bad:
+        raise SmokeError(f"autograd functions disagree with their plain versions: {bad}")
+
+
+def run_train_cli(counters):
+    """Phase 7: the train entry point on a synthetic ISIC-style folder: two
+    epochs with a checkpoint directory, then --resume auto for a third.
+    Returns the launches of the train steps and of the validation forwards
+    apart: the counts are set to 0 before each epoch's train or validation
+    pass (engine.run_epoch, which fit calls) and read after it."""
+    from accunet_tpu_torch.cli import train as cli
+    from accunet_tpu_torch.train import engine
+
+    launches = {"train_steps": dict.fromkeys(counters, 0),
+                "validation": dict.fromkeys(counters, 0)}
+    run_epoch = engine.run_epoch
+
+    def counted_run_epoch(step_fn, state, loader, train, **kw):
+        for fn in counters.values():
+            fn.launches = 0
+        out = run_epoch(step_fn, state, loader, train, **kw)
+        torch.cuda.synchronize()
+        for name, fn in counters.items():
+            launches["train_steps" if train else "validation"][name] += fn.launches
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "ckpt")
+        argv = ["--model", "ACC_UNet", "--synthetic", "--img-size", str(HW), "--batch", str(B),
+                "--device", "cuda", "--ckpt-dir", ckpt, "--check-numerics"]
+        engine.run_epoch = counted_run_epoch
+        try:
+            t0 = time.perf_counter()
+            _, hist1 = cli.main(argv + ["--epochs", "2"])
+            saved = sorted(os.listdir(ckpt))
+            state, hist2 = cli.main(argv + ["--epochs", "3", "--resume", "auto"])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            engine.run_epoch = run_epoch
+        kept = sorted(os.listdir(ckpt))
+    epochs = [h["epoch"] for h in hist1 + hist2]
+    steps = sum(h["train"]["batches"] for h in hist1 + hist2)
+    val_batches = sum(h["val"]["batches"] for h in hist1 + hist2)
+    losses = [h[s]["loss"] for h in hist1 + hist2 for s in ("train", "val")]
+    if epochs != [1, 2, 3] or "epoch_0002.pth.tar" not in saved or state.step != steps:
+        raise SmokeError(f"train/resume: epochs {epochs}, saved {saved}, step {state.step}")
+    if not all(np.isfinite(losses)):
+        raise SmokeError(f"non-finite losses {losses}")
+    # per train step: each of the 18 HANCBlocks' depthwise backward, each of
+    # the 16 k >= 2 HANC layers (every block unfused); per validation forward:
+    # 7 fused blocks, 7 ResPath levels, 9 HANC mixes
+    want = {"train_steps": {"hanc_block": 0, "respath_level": 0, "hanc_mix": 16 * steps,
+                            "dwconv2d_wgrad": 18 * steps},
+            "validation": {"hanc_block": 7 * val_batches, "respath_level": 7 * val_batches,
+                           "hanc_mix": 9 * val_batches, "dwconv2d_wgrad": 0}}
+    if launches != want:
+        raise SmokeError(f"train path launches {launches}, expected {want}")
+    log(f"  train: {steps} steps + {val_batches} val batches in {seconds:.2f} s (3 epochs, "
+        f"resumed after 2 from {saved[-1]}), losses {[round(v, 4) for v in losses]}, kept "
+        f"{kept}; launches {launches}")
+    return launches
+
+
+def bn_stat_err(got, want, init):
+    """Largest error of the running statistics after one step, each BN
+    tensor over its own scale: a running mean over the largest batch standard
+    deviation of its layer (a mean that is 0 in exact arithmetic, as behind a
+    1x1 conv of BN-normalised input, is held to the spread of its data), a
+    running variance over its layer's largest batch variance. running =
+    0.9 * init + 0.1 * batch, so the batch variances are read back from the
+    float64 buffers."""
+    worst = (0.0, "")
+    for name in want:
+        if not name.endswith("running_mean"):
+            continue
+        var_name = name[: -len("mean")] + "var"
+        var = float(((want[var_name] - 0.9 * init[var_name]) / 0.1).max())
+        worst = max(worst,
+                    (float((got[name] - want[name]).abs().max()) / (0.1 * var ** 0.5), name),
+                    (float((got[var_name] - want[var_name]).abs().max()) / (0.1 * var), var_name))
+    return worst
+
+
+class DepthwiseTaps:
+    """Forward hooks that keep, for every HANCBlock, the input x of its
+    depthwise conv (lrelu of norm1's output) and the gradient g of its
+    output (norm2's input), so that each depthwise weight gradient of a step
+    can be held against the plain wgrad of the same x and g."""
+
+    def __init__(self, model):
+        from accunet_tpu_torch.nn.acc_blocks import HANCBlock, lrelu
+
+        self.x, self.g, self.blocks = {}, {}, {}
+
+        def keep_x(name):
+            return lambda mod, inp, out: self.x.__setitem__(name, lrelu(out).detach())
+
+        def keep_g(name):
+            def hook(mod, inp):  # returns None: the input stays as it is
+                inp[0].register_hook(lambda g: self.g.__setitem__(name, g.detach()))
+            return hook
+
+        self.handles = []
+        for name, mod in model.named_modules():
+            if isinstance(mod, HANCBlock):
+                self.blocks[name] = mod
+                self.handles += [mod.norm1.register_forward_hook(keep_x(name)),
+                                 mod.norm2.register_forward_pre_hook(keep_g(name))]
+
+    def worst(self):
+        """(largest max |dw - plain| / max |plain| over the blocks, block)."""
+        from accunet_tpu_torch.ops.kernels.dwconv2d import dwconv2d_wgrad_reference
+
+        for h in self.handles:
+            h.remove()
+        errs = []
+        for name, mod in self.blocks.items():
+            kh, kw = mod.conv2.weight.shape[2:]
+            want = dwconv2d_wgrad_reference(self.x[name], self.g[name].contiguous(), kh, kw)
+            errs.append((rel_err(mod.conv2.weight.grad, want.permute(2, 0, 1).unsqueeze(1))[1],
+                         name))
+        return max(errs), len(errs)
+
+
+def compare_train_step(dev: str = "cuda"):
+    """Phase 8: one train step (make_train_fns: train-mode BN, weighted
+    Dice+BCE, backward, Adam) of ACC_UNet (n_filts=32, b2, seeded) on the GPU
+    in fp32 (kernels), held against the same step on the CPU in float64
+    (plain versions), with the CPU's fp32 step beside it as the control:
+      * the loss to TRAIN_TOL, relative;
+      * every BN running statistic to TRAIN_TOL of its own scale
+        (bn_stat_err);
+      * every depthwise weight gradient of the GPU step, per parameter, to
+        FP32_TOL of the plain wgrad of that step's own x and g (DepthwiseTaps):
+        the wgrad kernel feeds no activation, so this holds it in the step
+        exactly, however the step's rounding went;
+      * the gradients as a whole only coarsely (within twice the control's
+        gap of the largest gradient, or TRAIN_TOL): at random init train-mode
+        BN amplifies the gradients toward the input, and a LeakyReLU input
+        within rounding of 0 takes the other slope, so one step's fp32 and
+        float64 gradients differ by about a tenth of the largest gradient on
+        either device (PERF.md section 6)."""
+    from accunet_tpu_torch.models import ACC_UNet, init_parameters
+    from accunet_tpu_torch.train.engine import make_train_fns
+
+    base = init_parameters(ACC_UNet(3, 1, NF), torch.Generator().manual_seed(0))
+    init = {n: b.double() for n, b in base.named_buffers() if "running" in n}
+    rs = np.random.default_rng(4)
+    x = torch.from_numpy(rs.random((2, TRAIN_CMP_HW, TRAIN_CMP_HW, 3), dtype=np.float32))
+    mask = torch.from_numpy((rs.random((2, TRAIN_CMP_HW, TRAIN_CMP_HW, 1)) > 0.5)
+                            .astype(np.float32))
+    res = {}
+    for tag, d, dt in (("gpu", dev, torch.float32), ("cpu", "cpu", torch.float32),
+                       ("cpu64", "cpu", torch.float64)):
+        t0 = time.perf_counter()
+        model = copy.deepcopy(base).to(device=d, dtype=dt)
+        taps = DepthwiseTaps(model) if tag == "gpu" else None
+        fns = make_train_fns(model)
+        _, stats = fns.train_step(fns.state, {"image": x.to(d, dt), "mask": mask.to(d, dt)})
+        res[tag] = (float(stats["loss"]),
+                    {n: p.grad.detach().double().cpu() for n, p in model.named_parameters()},
+                    {n: b.double().cpu() for n, b in model.named_buffers() if "running" in n})
+        if taps is not None:
+            dw_err, n_dw = taps.worst()
+        log(f"  {tag:5s} loss {res[tag][0]:.8f} ({time.perf_counter() - t0:.1f} s)")
+
+    def gap(tag):
+        """The largest gradient error over the largest float64 gradient."""
+        want = res["cpu64"][1]
+        scale = max(float(t.abs().max()) for t in want.values())
+        return max(float((res[tag][1][n] - t).abs().max()) for n, t in want.items()) / scale
+
+    out = {"loss_rel": abs(res["gpu"][0] - res["cpu64"][0]) / abs(res["cpu64"][0]),
+           "dw_vs_plain": dw_err[0], "dw_worst": dw_err[1], "dw_params": n_dw}
+    for tag in ("gpu", "cpu"):
+        out[f"bn_stats_{tag}"], out[f"bn_worst_{tag}"] = bn_stat_err(res[tag][2],
+                                                                     res["cpu64"][2], init)
+        out[f"grad_gap_{tag}"] = gap(tag)
+    log(f"  vs the float64 CPU step, GPU (CPU fp32 control): loss rel {out['loss_rel']:.3e}; "
+        f"BN statistics {out['bn_stats_gpu']:.3e} at {out['bn_worst_gpu']} "
+        f"({out['bn_stats_cpu']:.3e} at {out['bn_worst_cpu']}); gradients over the largest "
+        f"{out['grad_gap_gpu']:.3e} ({out['grad_gap_cpu']:.3e}). {n_dw} depthwise weight "
+        f"gradients vs plain wgrad of the step's x, g: rel {dw_err[0]:.3e} at {dw_err[1]}")
+    if (out["loss_rel"] > TRAIN_TOL or out["bn_stats_gpu"] > TRAIN_TOL
+            or out["dw_vs_plain"] > FP32_TOL
+            or out["grad_gap_gpu"] > max(2 * out["grad_gap_cpu"], TRAIN_TOL)):
+        raise SmokeError("the train step on the GPU disagrees with the float64 CPU step")
+    return out
+
+
+def time_train_step():
+    """Phase 9b: ACC_UNet b8 224x224 fp32 train step (forward, loss,
+    backward, Adam), 10 steps after 3 warm-up, and its peak memory."""
+    from accunet_tpu_torch.models import ACC_UNet, init_parameters
+    from accunet_tpu_torch.ops.kernels.dwconv2d import dwconv2d_wgrad
+    from accunet_tpu_torch.ops.kernels.hanc_mix import hanc_mix
+    from accunet_tpu_torch.train.engine import make_train_fns
+
+    model = init_parameters(ACC_UNet(3, 1, NF), torch.Generator().manual_seed(0)).cuda()
+    fns = make_train_fns(model)
+    g = torch.Generator("cuda").manual_seed(6)
+    batch = {"image": torch.rand(B, HW, HW, 3, generator=g, device="cuda"),
+             "mask": (torch.rand(B, HW, HW, 1, generator=g, device="cuda") > 0.5).float()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts = (dwconv2d_wgrad.launches, hanc_mix.launches)
+    ms = time_ms(lambda: fns.train_step(fns.state, batch), iters=10, warmup=3)
+    per_step = ((dwconv2d_wgrad.launches - counts[0]) / 13, (hanc_mix.launches - counts[1]) / 13)
+    _, stats = fns.train_step(fns.state, batch)
+    if not bool(torch.isfinite(stats["loss"])):
+        raise SmokeError("non-finite loss in the timed train step")
+    out = {"ms_per_step": ms, "img_per_s": B * 1e3 / ms,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    log(f"  ACC_UNet b{B} {HW}x{HW} fp32 train step: {ms:.3f} ms/step, {out['img_per_s']:.1f} "
+        f"img/s, peak {out['peak_mem_gib']:.2f} GiB; per step dwconv2d_wgrad {per_step[0]:g}, "
+        f"hanc_mix {per_step[1]:g}")
+    return out
+
+
 def seeded_model():
     """ACC_UNet (n_filts=32, logits) with seeded weights and BN statistics
     moved off their init values, so every folded affine is non-trivial."""
@@ -273,7 +607,7 @@ def compare_model():
 
 
 def time_model(model):
-    """Phase 6a: ACC_UNet b8 224x224 inference, fp32 and bf16."""
+    """Phase 9a: ACC_UNet b8 224x224 inference, fp32 and bf16."""
     x = torch.randn(B, HW, HW, 3, device="cuda", generator=torch.Generator("cuda").manual_seed(2))
     rates = {}
     for dt in (torch.float32, torch.bfloat16):
@@ -294,15 +628,22 @@ def time_model(model):
 
 
 def time_kernels(cases):
-    """Phase 6b: each kernel vs its plain version, per case, fp32 and bf16."""
+    """Phase 9c: each kernel vs its plain version and, where one exists, the
+    one PyTorch call that computes the same function, per case, fp32 and
+    bf16; beside the least time the card could take for the call."""
     times = {}
     for dt in (torch.float32, torch.bfloat16):
-        for kname, cname, kern, plain in cases(dt):
+        for case in cases(dt):
             with torch.inference_mode():
-                k_ms, p_ms = time_ms(kern), time_ms(plain)
-            times[(kname, cname, str(dt)[6:])] = (k_ms, p_ms)
-            log(f"  {kname:13s} {cname:14s} {str(dt)[6:]:8s} kernel {k_ms:8.3f} ms   "
-                f"plain {p_ms:8.3f} ms")
+                bound, bound_by = bound_ms(case, case.run())
+                k_ms, p_ms = time_ms(case.run), time_ms(case.plain)
+                lib_ms = time_ms(case.library) if case.library is not None else None
+            times[(case.kernel, case.name, str(dt)[6:])] = {
+                "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": bound,
+                "bound_by": bound_by}
+            lib = f"   library {lib_ms:8.3f} ms" if lib_ms is not None else ""
+            log(f"  {case.kernel:14s} {case.name:14s} {str(dt)[6:]:8s} kernel {k_ms:8.3f} ms   "
+                f"plain {p_ms:8.3f} ms{lib}   bound {bound:7.3f} ms ({bound_by})")
     return times
 
 
@@ -320,6 +661,7 @@ def main() -> int:
     try:
         from accunet_tpu_torch.nn import acc_blocks  # noqa: F401
         from accunet_tpu_torch.ops.kernels import _build
+        from accunet_tpu_torch.ops.kernels.dwconv2d import dwconv2d_wgrad
         from accunet_tpu_torch.ops.kernels.hanc_block import hanc_block
         from accunet_tpu_torch.ops.kernels.hanc_mix import hanc_mix
         from accunet_tpu_torch.ops.kernels.respath import respath_level
@@ -352,30 +694,56 @@ def main() -> int:
 
     log("[4] ACC_UNet through accunet_tpu_torch.cli.eval on cuda")
     counters = {"hanc_block": hanc_block, "respath_level": respath_level, "hanc_mix": hanc_mix}
-    launches = run_eval_cli(counters)
+    launches = {"eval_cli": run_eval_cli(counters)}
 
     log("[5] whole model, GPU vs CPU")
     model = compare_model()
 
-    log("[6] timing")
-    rates = time_model(model)
-    times = time_kernels(cases)
-    log("  " + json.dumps({"card": card, "acc_unet": rates}))
+    log("[6] train-path autograd functions vs plain versions (main-path shapes, b8)")
+    check_autograd_fns(dev)
 
-    timed_case = {"hanc_block": "cnv91", "respath_level": "rspth1.level1", "hanc_mix": "cnv72"}
+    log("[7] ACC_UNet through accunet_tpu_torch.cli.train on cuda, then --resume auto")
+    counters["dwconv2d_wgrad"] = dwconv2d_wgrad
+    train_launches = run_train_cli(counters)
+    launches["train_cli_steps"] = train_launches["train_steps"]
+    launches["train_cli_validation"] = train_launches["validation"]
+
+    log(f"[8] one train step, GPU vs CPU ({TRAIN_CMP_HW}x{TRAIN_CMP_HW}, b2, fp32, TF32 off)")
+    train_cmp = compare_train_step()
+
+    log("[9] timing")
+    rates = time_model(model)
+    train_rate = time_train_step()
+    times = time_kernels(cases)
+    log("  " + json.dumps({"card": card, "acc_unet": rates, "train_step_fp32": train_rate,
+                           "train_step_gpu_vs_cpu": train_cmp}))
+
+    timed_case = {"hanc_block": "cnv91", "respath_level": "rspth1.level1", "hanc_mix": "cnv72",
+                  "dwconv2d_wgrad": "cnv72"}
+    # source, the TPU kernel it replaces, and the path whose run gives
+    # `launches`: the inference kernels' own path is the eval CLI (they run
+    # in the train CLI only in its validation forwards), the wgrad's is the
+    # train CLI's train steps; `launches_by_path` has every path's count
     meta = {
         "hanc_block": ("accunet_tpu_torch/csrc/hanc_block.cu",
-                       "accunet_tpu/ops/pallas/hanc_block.py:335"),
+                       "accunet_tpu/ops/pallas/hanc_block.py:335", "eval_cli"),
         "respath_level": ("accunet_tpu_torch/csrc/respath_level.cu",
-                          "accunet_tpu/ops/pallas/respath.py:72"),
-        "hanc_mix": ("accunet_tpu_torch/csrc/hanc_mix.cu", "accunet_tpu/ops/pallas/hanc.py:154"),
+                          "accunet_tpu/ops/pallas/respath.py:72", "eval_cli"),
+        "hanc_mix": ("accunet_tpu_torch/csrc/hanc_mix.cu", "accunet_tpu/ops/pallas/hanc.py:154",
+                     "eval_cli"),
+        "dwconv2d_wgrad": ("accunet_tpu_torch/csrc/dwconv2d_wgrad.cu",
+                           "accunet_tpu/ops/pallas/dwconv2d.py:76", "train_cli_steps"),
     }
     kernels = []
-    for name, (source, replaces) in meta.items():
-        k_ms, p_ms = times[(name, timed_case[name], "float32")]
+    for name, (source, replaces, path) in meta.items():
+        t = times[(name, timed_case[name], "float32")]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": launches[name], "max_abs_err": worst[name],
-                        "ms": k_ms, "plain_ms": p_ms, "shape": f"{timed_case[name]} fp32 b{B}"})
+                        "launches": launches[path][name], "launches_path": path,
+                        "launches_by_path": {p: c[name] for p, c in launches.items() if name in c},
+                        "max_abs_err": worst[name],
+                        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                        "shape": f"{timed_case[name]} fp32 b{B}"})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

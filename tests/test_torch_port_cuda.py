@@ -5,7 +5,9 @@ and without the chained `pre` prologue, fp32 and bf16.
 
 Needs a CUDA device and nvcc (the kernels build at the first launch); skips
 without a device. chip_smoke.py covers the main path's full-size shapes.
-This file imports no JAX, so it also runs where JAX is not installed:
+Also the depthwise weight-gradient kernel against its plain version, the
+train path's autograd functions on the card, and the launches of one small
+train step. This file imports no JAX, so it also runs where JAX is not installed:
 `python -m pytest tests/test_torch_port_cuda.py --noconftest -q`.
 
 Tolerances, relative to the output's max magnitude: fp32 1e-5 (the same
@@ -15,6 +17,7 @@ rounding-boundary flip is one bf16 ulp, 2^-8)."""
 import pytest
 import torch
 
+from accunet_tpu_torch.ops.kernels import dwconv2d as DW
 from accunet_tpu_torch.ops.kernels import hanc_block as HB
 from accunet_tpu_torch.ops.kernels import hanc_mix as HM
 from accunet_tpu_torch.ops.kernels import respath as RP
@@ -107,6 +110,52 @@ def test_hanc_block_kernel(dev, dt, b, h, w, cin, inv, cout, k, pre):
     _close(sums.sum(dim=1), rsums.sum(dim=1), max(tol, 1e-4))
 
 
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("b,h,w,c,k", [
+    (1, 5, 7, 9, 3), (2, 12, 9, 40, 3), (1, 9, 20, 33, 7), (3, 4, 4, 64, 5), (2, 30, 17, 96, 3),
+])
+def test_dwconv2d_wgrad_kernel(dev, dt, b, h, w, c, k):
+    dtype, tol = DTYPES[dt]
+    g = torch.Generator(device=dev).manual_seed(3)
+    x, gy = _rn(g, dev, b, h, w, c).to(dtype), _rn(g, dev, b, h, w, c).to(dtype)
+    before = DW.dwconv2d_wgrad.launches
+    dw = DW.dwconv2d_wgrad(x, gy, k, k)
+    torch.cuda.synchronize()
+    assert DW.dwconv2d_wgrad.launches == before + 1
+    assert dw.dtype == torch.float32
+    # both sides sum the same fp32 products in another order
+    _close(dw, DW.dwconv2d_wgrad_reference(x, gy, k, k), 1e-5)
+
+
+def test_autograd_functions_on_the_card(dev):
+    """DepthwiseConv2dFn's gradients against autograd through cuDNN's
+    grouped conv; HancMixFn's against autograd through its plain version."""
+    from accunet_tpu_torch.ops.kernels.hanc_mix import HancMixFn
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = _rn(g, dev, 2, 10, 12, 24).requires_grad_(True)
+    wt = _rn(g, dev, 24, 1, 3, 3, s=0.3).requires_grad_(True)
+    bias = _rn(g, dev, 24, s=0.1).requires_grad_(True)
+    gy = _rn(g, dev, 2, 10, 12, 24)
+    got = torch.autograd.grad(DW.DepthwiseConv2dFn.apply(x, wt, bias), (x, wt, bias), gy)
+    y = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), wt, bias, padding=1, groups=24)
+    want = torch.autograd.grad(y.permute(0, 2, 3, 1), (x, wt, bias), gy)
+    for a, b_ in zip(got, want):
+        _close(a, b_, 1e-5)
+
+    k = 3
+    x = _rn(g, dev, 2, 8, 16, 20).requires_grad_(True)
+    wm = _rn(g, dev, 20, 2 * k - 1, 12, s=0.2).requires_grad_(True)
+    bm = _rn(g, dev, 12, s=0.1).requires_grad_(True)
+    gy = _rn(g, dev, 2, 8, 16, 12)
+    before = HM.hanc_mix.launches
+    got = torch.autograd.grad(HancMixFn.apply(x, wm, bm, k), (x, wm, bm), gy)
+    assert HM.hanc_mix.launches == before + 1
+    want = torch.autograd.grad(HM.hanc_mix_reference(x, wm, bm, k), (x, wm, bm), gy)
+    for a, b_ in zip(got, want):
+        _close(a, b_, 1e-5)
+
+
 def test_wrappers_refuse_bad_operands(dev):
     x = torch.zeros(1, 8, 8, 4, device=dev)
     w = torch.zeros(4, 3, 4, device=dev)
@@ -117,6 +166,25 @@ def test_wrappers_refuse_bad_operands(dev):
     with pytest.raises(ValueError, match="divisible"):
         HM.hanc_mix(torch.zeros(1, 6, 6, 4, device=dev), torch.zeros(4, 5, 4, device=dev),
                     torch.zeros(4, device=dev), 3)
+
+
+def test_small_train_step_launches_the_kernels(dev):
+    """ACC_UNet at n_filts=8 (32x32): one train step on the card launches
+    dwconv2d_wgrad at each of the 18 HANCBlocks and hanc_mix at each of the
+    16 HANC layers with k >= 2; the loss is finite."""
+    from accunet_tpu_torch.models import ACC_UNet, init_parameters
+    from accunet_tpu_torch.train.engine import make_train_fns
+
+    model = init_parameters(ACC_UNet(3, 1, 8), torch.Generator().manual_seed(0)).to(dev)
+    fns = make_train_fns(model)
+    g = torch.Generator(device=dev).manual_seed(5)
+    batch = {"image": torch.rand(2, 32, 32, 3, generator=g, device=dev),
+             "mask": (torch.rand(2, 32, 32, 1, generator=g, device=dev) > 0.5).float()}
+    counts = (DW.dwconv2d_wgrad.launches, HM.hanc_mix.launches)
+    _, stats = fns.train_step(fns.state, batch)
+    assert DW.dwconv2d_wgrad.launches - counts[0] == 18
+    assert HM.hanc_mix.launches - counts[1] == 16
+    assert bool(torch.isfinite(stats["loss"]))
 
 
 @pytest.mark.parametrize("n_filts,hw,n_block,n_mix", [(8, 32, 7, 9), (48, 16, 6, 10)])
@@ -149,15 +217,18 @@ def test_small_model_gpu_matches_cpu(dev, n_filts, hw, n_block, n_mix):
     _close(got, want, 1e-4)
 
 
-def test_profile_cli_on_the_card(dev):
-    """The profiler entry point at a small size: every port kernel launches,
-    the device is busy for part of a window, every family time is positive."""
+@pytest.mark.parametrize("train", [False, True])
+def test_profile_cli_on_the_card(dev, train):
+    """The profiler entry point at a small size, a forward or a train step:
+    every port kernel of the path launches, the device is busy for part of a
+    window, every family time is positive."""
     from accunet_tpu_torch.cli import profile
 
     res = profile.main(["--img", "32", "--batch", "2", "--steps", "2",
-                        "--model-kwargs", "{'n_filts': 8}"])
+                        "--model-kwargs", "{'n_filts': 8}"] + (["--train"] if train else []))
     assert 0 < res["busy_ms"] <= res["window_ms"] * 1.05
     assert res["kernels_per_forward"] > 0
-    assert {"hanc_block", "respath_level", "hanc_mix"} <= set(res["families_ms"])
+    want = {"hanc_mix", "dwconv2d_wgrad"} if train else {"hanc_block", "respath_level", "hanc_mix"}
+    assert want <= set(res["families_ms"])
     assert all(t > 0 for t in res["families_ms"].values())
     assert "cnv72" in res["spans_ms"]
