@@ -2,11 +2,12 @@
 
     python -m accunet_tpu_torch.cli.profile --model ACC_UNet --img 224 --batch 8 \
         [--dtype bfloat16] [--steps 5] [--device cuda] [--train]
+    python -m accunet_tpu_torch.cli.profile --model Segmamba [--train]
 
 Runs the model with seeded random weights on one CUDA device, in eval mode
-(a forward per step) or with --train a train step (train-mode forward,
-weighted Dice+BCE, backward, Adam; float32 only), and prints, for one batch
-of 3-channel images of the given size:
+(a forward per step) or with --train a train step (train-mode forward, the
+model's configured loss, backward, Adam; float32 only), and prints, for one
+batch of 3-channel images of the given size:
   - the parameter count;
   - ms per step and img/s: CUDA events over --steps steps after warm-up;
   - module spans: CUDA events in forward pre/post hooks on the model's
@@ -31,6 +32,8 @@ from collections import defaultdict
 
 # device-kernel name fragment -> family (first match wins)
 FAMILIES = (
+    ("linear_scan_kernel<true>", "linear_scan_reverse"),
+    ("linear_scan_kernel<false>", "linear_scan"),
     ("hanc_block_kernel", "hanc_block"),
     ("respath_level_kernel", "respath_level"),
     ("hanc_mix_kernel", "hanc_mix"),
@@ -86,11 +89,14 @@ def main(argv=None):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from accunet_tpu_torch.config import get_config
     from accunet_tpu_torch.models import build as build_model, init_parameters
     from accunet_tpu_torch.ops.kernels.dwconv2d import dwconv2d_wgrad
     from accunet_tpu_torch.ops.kernels.hanc_block import hanc_block
     from accunet_tpu_torch.ops.kernels.hanc_mix import hanc_mix
     from accunet_tpu_torch.ops.kernels.respath import respath_level
+    from accunet_tpu_torch.ops.kernels.scan import linear_scan, linear_scan_reverse
+    from accunet_tpu_torch.train import losses as L
 
     device = torch.device(args.device)
     if device.type != "cuda" or not torch.cuda.is_available():
@@ -101,7 +107,10 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     dtype = getattr(torch, args.dtype)
     kwargs = ast.literal_eval(args.model_kwargs) if args.model_kwargs else {}
-    model = build_model(args.model, n_channels=3, n_classes=1, **kwargs)
+    if args.model.startswith("Segmamba"):  # SegMamba builders, as in JAX
+        model = build_model(args.model, in_chans=3, out_chans=1, **kwargs)
+    else:
+        model = build_model(args.model, n_channels=3, n_classes=1, **kwargs)
     init_parameters(model, torch.Generator().manual_seed(0))
     model = model.to(device=device, dtype=dtype).eval()
     gen = torch.Generator(device).manual_seed(1)
@@ -114,7 +123,7 @@ def main(argv=None):
     if args.train:
         from accunet_tpu_torch.train.engine import make_train_fns
 
-        fns = make_train_fns(model)
+        fns = make_train_fns(model, loss_fn=L.LOSSES[get_config(args.model).train.loss])
         mask = (torch.rand(args.batch, args.img, args.img, 1, device=device, generator=gen)
                 > 0.5).float()
 
@@ -153,7 +162,8 @@ def main(argv=None):
 
             hooks += [mod.register_forward_pre_hook(pre), mod.register_forward_hook(post)]
         counters = {"hanc_block": hanc_block, "respath_level": respath_level,
-                    "hanc_mix": hanc_mix, "dwconv2d_wgrad": dwconv2d_wgrad}
+                    "hanc_mix": hanc_mix, "dwconv2d_wgrad": dwconv2d_wgrad,
+                    "linear_scan": linear_scan, "linear_scan_reverse": linear_scan_reverse}
         for fn in counters.values():
             fn.launches = 0
         step()

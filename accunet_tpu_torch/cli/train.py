@@ -5,8 +5,10 @@
         [--n-classes 9] [--resume auto --ckpt-dir ckpt] [--device cuda] \
         [--set train.lr=3e-4 data.batch_size=16 ...]
 
-`--synthetic` trains on a generated random npy folder instead of dataset
-directories. Seeding: numpy, the loaders and the model's initialisation (a
+`--model Segmamba` trains the SegMamba baseline (built with in_chans /
+out_chans, as the JAX CLI builds SegMamba models; binary Dice+BCE at 224 by
+the config). `--synthetic` trains on a generated random npy folder instead
+of dataset directories. Seeding: numpy, the loaders and the model's initialisation (a
 torch.Generator) all take cfg.train.seed. `--device cuda` (the default)
 raises when CUDA is unavailable; it never falls back to the CPU. Training
 runs in float32.
@@ -146,8 +148,11 @@ def main(argv=None):
 
     sample, _ = train_ds[0]
     n_cls = args.n_classes
-    model = build_model(args.model, n_channels=sample["image"].shape[-1], n_classes=n_cls,
-                        **cfg.model.kwargs)
+    n_ch = sample["image"].shape[-1]
+    if args.model.lower().startswith("segmamba"):  # SegMamba builders, as in JAX
+        model = build_model(args.model, in_chans=n_ch, out_chans=n_cls, **cfg.model.kwargs)
+    else:
+        model = build_model(args.model, n_channels=n_ch, n_classes=n_cls, **cfg.model.kwargs)
     init_parameters(model, torch.Generator().manual_seed(cfg.train.seed))
     model = model.to(device)
 

@@ -1,22 +1,32 @@
-"""Model registry of the port: the ACC-UNet family, under the JAX package's
-registry names (accunet_tpu/models/__init__.py)."""
+"""Model registry of the port, under the JAX package's registry names
+(accunet_tpu/models/__init__.py): the ACC-UNet family and the SegMamba
+baseline."""
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import Callable, Dict
+
+import torch
+from torch import nn
 
 from accunet_tpu_torch.models.acc_unet import (
     ACC_UNet,
     ACC_UNet_Lite,
     ACC_UNet_W,
     ACCUNet,
-    init_parameters,
 )
+from accunet_tpu_torch.models.segmamba import SegMamba, build_segmamba
+from accunet_tpu_torch.nn.acc_blocks import MLFC
+from accunet_tpu_torch.nn.ssm import BiMamba
 
 registry: Dict[str, Callable] = {
     "ACC_UNet": ACC_UNet,
     "ACC_UNet_Lite": ACC_UNet_Lite,
     "ACC_UNet_W": ACC_UNet_W,
+    # SegMamba builders take in_chans/out_chans, as in JAX
+    "Segmamba": functools.partial(build_segmamba, "Segmamba"),
 }
 
 
@@ -26,5 +36,34 @@ def build(name: str, **kwargs):
     return registry[name](**kwargs)
 
 
-__all__ = ["ACCUNet", "ACC_UNet", "ACC_UNet_Lite", "ACC_UNet_W", "build",
-           "init_parameters", "registry"]
+@torch.no_grad()
+def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Seeded initialisation with the JAX package's initialisers: every conv
+    (1-D and 2-D), transposed-conv and linear weight lecun-normal (truncated
+    at 2 sigma), biases zero, BN scale one / shift zero / stats (0, 1),
+    LayerNorm scale one / shift zero, the MLFC-W blend zero, and each
+    BiMamba's A_log = log(1..d_state), D = 1. Draws come from `generator` in
+    module order."""
+    for mod in model.modules():
+        if isinstance(mod, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            w = mod.weight
+            if isinstance(mod, nn.ConvTranspose2d):  # (I, O, kh, kw)
+                fan_in = w.shape[0] * w.shape[2] * w.shape[3]
+            else:
+                fan_in = math.prod(w.shape[1:])
+            # flax lecun_normal: truncated normal, stddev corrected for the cut
+            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+            nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, (nn.BatchNorm2d, nn.LayerNorm)):
+            mod.reset_parameters()
+        elif isinstance(mod, MLFC) and hasattr(mod, "W"):
+            mod.W.zero_()
+        elif isinstance(mod, BiMamba):
+            mod.reset_ssm_parameters()
+    return model
+
+
+__all__ = ["ACCUNet", "ACC_UNet", "ACC_UNet_Lite", "ACC_UNet_W", "SegMamba", "build",
+           "build_segmamba", "init_parameters", "registry"]

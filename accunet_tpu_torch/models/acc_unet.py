@@ -25,7 +25,6 @@ recomputed in the backward instead of kept.
 from __future__ import annotations
 
 import contextlib
-import math
 
 import torch
 from torch import nn
@@ -40,10 +39,10 @@ from accunet_tpu_torch.ops.pooling import max_pool2d
 class ConvTranspose2x2(nn.ConvTranspose2d):
     """torch.nn.ConvTranspose2d(k=2, s=2) on NHWC tensors, evaluated as one
     matmul + depth-to-space. The weight keeps torch's (I, O, 2, 2) layout
-    (the JAX tree's `kernel_t`)."""
+    (the JAX tree's `kernel_t`); `bias=False` for the UNETR decoder's."""
 
-    def __init__(self, in_features: int, out_features: int):
-        super().__init__(in_features, out_features, 2, stride=2)
+    def __init__(self, in_features: int, out_features: int, bias: bool = True):
+        super().__init__(in_features, out_features, 2, stride=2, bias=bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv_transpose_2x2(x, self.weight, self.bias)
@@ -160,28 +159,3 @@ def ACC_UNet_Lite(n_channels=3, n_classes=1, n_filts=32, **kw):
 
 def ACC_UNet_W(n_channels=3, n_classes=1, n_filts=32, **kw):
     return ACCUNet(n_channels, n_classes, n_filts, variant="w", **kw)
-
-
-@torch.no_grad()
-def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Seeded initialisation with the JAX package's initialisers: every conv,
-    transposed-conv and linear weight lecun-normal (truncated at 2 sigma),
-    biases zero, BN scale one / shift zero / stats (0, 1), the MLFC-W blend
-    zero. Draws come from `generator` in module order."""
-    for mod in model.modules():
-        if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
-            w = mod.weight
-            if isinstance(mod, nn.ConvTranspose2d):  # (I, O, kh, kw)
-                fan_in = w.shape[0] * w.shape[2] * w.shape[3]
-            else:
-                fan_in = math.prod(w.shape[1:])
-            # flax lecun_normal: truncated normal, stddev corrected for the cut
-            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-            nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
-            if mod.bias is not None:
-                mod.bias.zero_()
-        elif isinstance(mod, nn.BatchNorm2d):
-            mod.reset_parameters()
-        elif isinstance(mod, MLFC) and hasattr(mod, "W"):
-            mod.W.zero_()
-    return model

@@ -37,6 +37,9 @@ SIGNATURES = {
     "accunet_respath_level": [_P] * 11 + [_I] * 6 + [_P],
     "accunet_hanc_block": [_P] * 14 + [_I] * 9 + [_P],
     "accunet_dwconv2d_wgrad": [_P] * 4 + [_I] * 9 + [_P],
+    "accunet_linear_scan": [_P] * 3 + [_I] * 3 + [_P],
+    "accunet_linear_scan_reverse": [_P] * 5 + [_I] * 3 + [_P],
+    "accunet_linear_scan_staged": [_P] * 3 + [_I] * 5 + [_P],
 }
 
 

@@ -5,8 +5,9 @@ accunet_tpu/port/torch_state.py (`_torch_key` / `_convert_leaf`): flax
 submodule names mirror the reference torch attribute names, with
 
   * `foo_3` for the ModuleList entry `foo.3` (and `a__b` for a literal `a_b`),
-  * conv kernels HWIO -> OIHW, transposed-conv `kernel_t` (kh,kw,I,O) ->
-    (I,O,kh,kw), Dense kernels (in,out) -> (out,in),
+  * conv kernels HWIO -> OIHW, Conv1d kernels (K, I/g, O) -> (O, I/g, K),
+    transposed-conv `kernel_t` (kh,kw,I,O) -> (I,O,kh,kw), Dense kernels
+    (in,out) -> (out,in),
   * BatchNorm scale/bias -> weight/bias and batch_stats mean/var ->
     running_mean/running_var (plus a zero num_batches_tracked).
 
@@ -41,6 +42,8 @@ def _convert(leaf: str, v: np.ndarray) -> np.ndarray:
     if leaf == "kernel":
         if v.ndim == 4:
             return v.transpose(3, 2, 0, 1)
+        if v.ndim == 3:
+            return v.transpose(2, 1, 0)
         if v.ndim == 2:
             return v.T
         raise ValueError(f"unsupported kernel rank {v.ndim}")

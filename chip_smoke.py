@@ -29,7 +29,21 @@ From the root of a checkout, with one CUDA device:
   9. times ACC_UNet b8 224x224 inference in fp32 and bf16, its fp32 train
      step, and each kernel against its plain version and, for the wgrad, the
      one PyTorch call that computes the same function (CUDA events, warm-up
-     excluded), beside the least time the card could take for it.
+     excluded), beside the least time the card could take for it;
+ 10. holds the scan kernels (linear_scan forward and reverse, the staged
+     dma_chunked_scan) against their plain versions at the four stage shapes
+     of Segmamba b8 224x224, and the staged kernel bitwise against
+     linear_scan;
+ 11. checks ChunkedLinearScanFn's gradients against autograd of the plain
+     scan;
+ 12. compares Segmamba at full width, b8 224x224, with the scan kernel
+     against the same GPU model through the plain scan, and a b1 64x64
+     forward GPU vs CPU;
+ 13. runs the train entry point with --model Segmamba as in phase 7 and
+     checks 16 forward scans per train step and per validation forward and
+     16 reverse scans per train step;
+ 14. times Segmamba inference and its train step, and each scan kernel per
+     stage against its plain version and its bound.
 It prints a JSON line of the kernels, then as its last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 A failed phase raises, so the run exits non-zero and prints no result; so
@@ -38,6 +52,7 @@ does a host without CUDA or a directory without the package.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import csv
 import json
@@ -329,12 +344,13 @@ def check_autograd_fns(dev):
         raise SmokeError(f"autograd functions disagree with their plain versions: {bad}")
 
 
-def run_train_cli(counters):
-    """Phase 7: the train entry point on a synthetic ISIC-style folder: two
-    epochs with a checkpoint directory, then --resume auto for a third.
-    Returns the launches of the train steps and of the validation forwards
-    apart: the counts are set to 0 before each epoch's train or validation
-    pass (engine.run_epoch, which fit calls) and read after it."""
+def run_train_cli(counters, model, want_fn):
+    """Phases 7 and 13: the train entry point for `model` on a synthetic
+    ISIC-style folder: two epochs with a checkpoint directory, then --resume
+    auto for a third. Returns the launches of the train steps and of the
+    validation forwards apart: the counts are set to 0 before each epoch's
+    train or validation pass (engine.run_epoch, which fit calls) and read
+    after it. want_fn(steps, val_batches) gives the expected launches."""
     from accunet_tpu_torch.cli import train as cli
     from accunet_tpu_torch.train import engine
 
@@ -353,7 +369,7 @@ def run_train_cli(counters):
 
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, "ckpt")
-        argv = ["--model", "ACC_UNet", "--synthetic", "--img-size", str(HW), "--batch", str(B),
+        argv = ["--model", model, "--synthetic", "--img-size", str(HW), "--batch", str(B),
                 "--device", "cuda", "--ckpt-dir", ckpt, "--check-numerics"]
         engine.run_epoch = counted_run_epoch
         try:
@@ -374,19 +390,23 @@ def run_train_cli(counters):
         raise SmokeError(f"train/resume: epochs {epochs}, saved {saved}, step {state.step}")
     if not all(np.isfinite(losses)):
         raise SmokeError(f"non-finite losses {losses}")
-    # per train step: each of the 18 HANCBlocks' depthwise backward, each of
-    # the 16 k >= 2 HANC layers (every block unfused); per validation forward:
-    # 7 fused blocks, 7 ResPath levels, 9 HANC mixes
-    want = {"train_steps": {"hanc_block": 0, "respath_level": 0, "hanc_mix": 16 * steps,
-                            "dwconv2d_wgrad": 18 * steps},
-            "validation": {"hanc_block": 7 * val_batches, "respath_level": 7 * val_batches,
-                           "hanc_mix": 9 * val_batches, "dwconv2d_wgrad": 0}}
+    want = want_fn(steps, val_batches)
     if launches != want:
         raise SmokeError(f"train path launches {launches}, expected {want}")
-    log(f"  train: {steps} steps + {val_batches} val batches in {seconds:.2f} s (3 epochs, "
+    log(f"  {model} train: {steps} steps + {val_batches} val batches in {seconds:.2f} s (3 epochs, "
         f"resumed after 2 from {saved[-1]}), losses {[round(v, 4) for v in losses]}, kept "
         f"{kept}; launches {launches}")
     return launches
+
+
+def acc_train_launches(steps, val_batches):
+    """Per ACC_UNet train step: each of the 18 HANCBlocks' depthwise backward,
+    each of the 16 k >= 2 HANC layers (every block unfused); per validation
+    forward: 7 fused blocks, 7 ResPath levels, 9 HANC mixes."""
+    return {"train_steps": {"hanc_block": 0, "respath_level": 0, "hanc_mix": 16 * steps,
+                            "dwconv2d_wgrad": 18 * steps},
+            "validation": {"hanc_block": 7 * val_batches, "respath_level": 7 * val_batches,
+                           "hanc_mix": 9 * val_batches, "dwconv2d_wgrad": 0}}
 
 
 def bn_stat_err(got, want, init):
@@ -647,6 +667,250 @@ def time_kernels(cases):
     return times
 
 
+# ------------------------------------------------------------- SegMamba slice
+# Segmamba (the SegMamba baseline) at full width, b8 224x224: feat 48/96/192/384,
+# d_state 16, expand 2; the stage-i BiMambas scan L = (112 / 2^i)^2 steps over
+# D = 2 * feat_i * 16 columns, two layers x two branches per stage
+SM_FEAT = (48, 96, 192, 384)
+SCAN_STAGES = tuple((f"stage{i}", B, (HW // 2 >> i) ** 2, 2 * f * 16)
+                    for i, f in enumerate(SM_FEAT))
+SCANS_PER_FORWARD = 16
+SM_CMP_HW = 64  # GPU vs CPU forward: full width, b1, 64x64
+
+
+def scan_inputs(g, b, l, d):
+    """a = exp(delta * A) as a BiMamba branch makes it (delta the softplus of
+    N(0, 1) per channel, A = -(1..16) along each state row), b ~ N(0, 0.3^2)."""
+    delta = torch.nn.functional.softplus(torch.randn(b, l, d // 16, 1, generator=g, device="cuda"))
+    a = torch.exp(delta * -torch.arange(1, 17, device="cuda", dtype=torch.float32))
+    return a.reshape(b, l, d), 0.3 * torch.randn(b, l, d, generator=g, device="cuda")
+
+
+def check_scan_kernels():
+    """Phase 10: linear_scan (forward and reverse) vs linear_scan_plain /
+    linear_scan_grads_plain at Segmamba's four stage shapes and at one odd
+    shape (B 3, L 300: a partial last chunk, D 48: a partial 32-column tile),
+    fp32 rel <= FP32_TOL; linear_scan_staged (dma_chunked_scan) bitwise equal
+    to linear_scan at nbuf 2 and 4 (and chunk 64 on the odd shape). Returns
+    {kernel: max abs error vs plain}."""
+    from accunet_tpu_torch.ops.kernels import scan as S
+
+    g = torch.Generator("cuda").manual_seed(10)
+    worst, bad = {"linear_scan": 0.0, "linear_scan_staged": 0.0}, []
+    for name, b, l, d in SCAN_STAGES + (("odd", 3, 300, 48),):
+        a, x = scan_inputs(g, b, l, d)
+        gy = torch.randn(b, l, d, generator=g, device="cuda")
+        h = S.linear_scan(a, x)
+        da, db = S.linear_scan_reverse(a, h, gy)
+        staged = {f"nbuf{nb}": S.dma_chunked_scan(a, x, nbuf=nb) for nb in (2, 4)}
+        if name == "odd":
+            staged["chunk64"] = S.dma_chunked_scan(a, x, chunk=64, nbuf=3)
+        torch.cuda.synchronize()
+        hp = S.linear_scan_plain(a, x)
+        dap, dbp = S.linear_scan_grads_plain(a, h, gy)
+        errs = [rel_err(h, hp), rel_err(da, dap), rel_err(db, dbp)]
+        equal = {k: bool(torch.equal(v, h)) for k, v in staged.items()}
+        rel = max(e[1] for e in errs)
+        ok = rel <= FP32_TOL and all(equal.values())
+        worst["linear_scan"] = max(worst["linear_scan"], max(e[0] for e in errs))
+        worst["linear_scan_staged"] = max(worst["linear_scan_staged"],
+                                          max(rel_err(v, hp)[0] for v in staged.values()))
+        log(f"  {'ok ' if ok else 'BAD'} linear_scan {name:6s} B{b} L{l} D{d}: forward rel "
+            f"{errs[0][1]:.3e}, reverse da {errs[1][1]:.3e} db {errs[2][1]:.3e} (tol "
+            f"{FP32_TOL:g}); staged == linear_scan {equal}")
+        if not ok:
+            bad.append(name)
+        del a, x, gy, h, da, db, staged, hp, dap, dbp
+    torch.cuda.empty_cache()
+    if bad:
+        raise SmokeError(f"scan kernels disagree with their plain versions: {bad}")
+    return worst
+
+
+def check_scan_autograd():
+    """Phase 11: ChunkedLinearScanFn's gradients (reverse kernel) vs autograd
+    through linear_scan_plain, at stage 2's shape and the odd one."""
+    from accunet_tpu_torch.ops.kernels.scan import ChunkedLinearScanFn, linear_scan_plain
+
+    g = torch.Generator("cuda").manual_seed(11)
+    bad = []
+    for name, b, l, d in (SCAN_STAGES[2], ("odd", 3, 300, 48)):
+        a, x = (t.requires_grad_(True) for t in scan_inputs(g, b, l, d))
+        w = torch.randn(b, l, d, generator=g, device="cuda")
+        got = torch.autograd.grad(ChunkedLinearScanFn.apply(a, x), (a, x), w)
+        want = torch.autograd.grad(linear_scan_plain(a, x), (a, x), w)
+        rel = max(rel_err(p, q)[1] for p, q in zip(got, want))
+        ok = rel <= FP32_TOL
+        log(f"  {'ok ' if ok else 'BAD'} ChunkedLinearScanFn {name} B{b} L{l} D{d}: grads rel "
+            f"{rel:.3e} (tol {FP32_TOL:g})")
+        if not ok:
+            bad.append(name)
+    if bad:
+        raise SmokeError(f"ChunkedLinearScanFn disagrees with autograd of the plain scan: {bad}")
+
+
+def segmamba_model():
+    """Segmamba at full width and depth (3 channels in, 1 logit out), seeded
+    with the JAX package's initialisers, eval mode, on the CPU."""
+    from accunet_tpu_torch.models import build, init_parameters
+
+    return init_parameters(build("Segmamba", in_chans=3, out_chans=1),
+                           torch.Generator().manual_seed(0)).eval()
+
+
+@contextlib.contextmanager
+def plain_scan():
+    """Route selective_scan's chunked linear scan through linear_scan_plain."""
+    from accunet_tpu_torch.ops import selective_scan as SS
+    from accunet_tpu_torch.ops.kernels.scan import linear_scan_plain
+
+    kernel = SS.chunked_linear_scan
+    SS.chunked_linear_scan = linear_scan_plain
+    try:
+        yield
+    finally:
+        SS.chunked_linear_scan = kernel
+
+
+def compare_segmamba(model):
+    """Phase 12: Segmamba b8 224x224 fp32 on the GPU with the scan kernel vs
+    the same GPU model through linear_scan_plain (logits and the four
+    encoder stages, rel <= FP32_TOL); then full width, b1 64x64, GPU vs CPU
+    (plain versions), rel <= MODEL_TOL."""
+    from accunet_tpu_torch.ops.kernels.scan import linear_scan
+
+    gpu = copy.deepcopy(model).cuda()
+    x = torch.randn(B, HW, HW, 3, device="cuda", generator=torch.Generator("cuda").manual_seed(12))
+    feats = {}
+    hook = gpu.vit.register_forward_hook(lambda mod, inp, out: feats.__setitem__(len(feats), out))
+    with torch.inference_mode():
+        before = linear_scan.launches
+        got = gpu(x)
+        torch.cuda.synchronize()
+        n_kernel = linear_scan.launches - before
+        with plain_scan():
+            want = gpu(x)
+        torch.cuda.synchronize()
+        n_plain = linear_scan.launches - before - n_kernel
+    hook.remove()
+    if (n_kernel, n_plain) != (SCANS_PER_FORWARD, 0):
+        raise SmokeError(f"the kernel forward launched {n_kernel} scans, the plain one {n_plain}")
+    errs = {f"stage{i}": rel_err(p, q) for i, (p, q) in enumerate(zip(feats[0], feats[1]))}
+    errs["logits"] = rel_err(got, want)
+    worst = max(e[1] for e in errs.values())
+    log(f"  b{B} {HW}x{HW}, scan kernel vs linear_scan_plain on the GPU: "
+        + ", ".join(f"{k} rel {v[1]:.3e}" for k, v in errs.items())
+        + f" (|logit| <= {float(want.abs().max()):.3g}, tol {FP32_TOL:g})")
+    del gpu, feats, got, want
+    torch.cuda.empty_cache()
+    if worst > FP32_TOL:
+        raise SmokeError("Segmamba with the scan kernel disagrees with the plain scan")
+    xs = torch.from_numpy(np.random.default_rng(13).standard_normal(
+        (1, SM_CMP_HW, SM_CMP_HW, 3), dtype=np.float32))
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        want = model(xs)
+        cpu_s = time.perf_counter() - t0
+        got = copy.deepcopy(model).cuda()(xs.cuda()).cpu()
+    abs_err, rel = rel_err(got, want)
+    log(f"  b1 {SM_CMP_HW}x{SM_CMP_HW}, GPU vs CPU: logits max_abs_err {abs_err:.3e} (rel "
+        f"{rel:.3e}, tol {MODEL_TOL:g}); CPU forward {cpu_s:.1f} s")
+    if rel > MODEL_TOL:
+        raise SmokeError("Segmamba on the GPU disagrees with the CPU")
+    return {"kernel_vs_plain_rel": worst, "gpu_vs_cpu_rel": rel}
+
+
+def segmamba_train_launches(steps, val_batches):
+    """Per Segmamba train step: 16 forward scans (2 layers x 2 branches x 4
+    stages) and their 16 reverse scans; per validation forward: 16 forward
+    scans; nothing else of the port's kernels."""
+    zero = dict.fromkeys(("hanc_block", "respath_level", "hanc_mix", "dwconv2d_wgrad",
+                          "linear_scan_staged"), 0)
+    return {"train_steps": {**zero, "linear_scan": SCANS_PER_FORWARD * steps,
+                            "linear_scan_reverse": SCANS_PER_FORWARD * steps},
+            "validation": {**zero, "linear_scan": SCANS_PER_FORWARD * val_batches,
+                           "linear_scan_reverse": 0}}
+
+
+def time_segmamba(model):
+    """Phase 14a/b: Segmamba b8 224x224 fp32 inference and train step
+    (binary Dice+BCE, its configured loss; backward; Adam), CUDA events,
+    10 iterations after 3 warm-up, with peak memory."""
+    from accunet_tpu_torch.ops.kernels.scan import linear_scan, linear_scan_reverse
+    from accunet_tpu_torch.train import losses as L
+    from accunet_tpu_torch.train.engine import make_train_fns
+
+    g = torch.Generator("cuda").manual_seed(14)
+    x = torch.rand(B, HW, HW, 3, generator=g, device="cuda")
+    m = copy.deepcopy(model).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        ms = time_ms(lambda: m(x), iters=10, warmup=3)
+    out = {"inference_fp32": {"ms_per_batch": ms, "img_per_s": B * 1e3 / ms,
+                              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}}
+    fns = make_train_fns(m.train(), loss_fn=L.binary_dice_bce)
+    batch = {"image": x, "mask": (torch.rand(B, HW, HW, 1, generator=g, device="cuda") > 0.5)
+             .float()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts = (linear_scan.launches, linear_scan_reverse.launches)
+    ms = time_ms(lambda: fns.train_step(fns.state, batch), iters=10, warmup=3)
+    per_step = ((linear_scan.launches - counts[0]) / 13,
+                (linear_scan_reverse.launches - counts[1]) / 13)
+    _, stats = fns.train_step(fns.state, batch)
+    if not bool(torch.isfinite(stats["loss"])):
+        raise SmokeError("non-finite loss in the timed Segmamba train step")
+    out["train_step_fp32"] = {"ms_per_step": ms, "img_per_s": B * 1e3 / ms,
+                              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    i, t = out["inference_fp32"], out["train_step_fp32"]
+    log(f"  Segmamba b{B} {HW}x{HW} fp32 inference: {i['ms_per_batch']:.3f} ms/batch, "
+        f"{i['img_per_s']:.1f} img/s, peak {i['peak_mem_gib']:.2f} GiB; train step "
+        f"{t['ms_per_step']:.3f} ms/step, {t['img_per_s']:.1f} img/s, peak "
+        f"{t['peak_mem_gib']:.2f} GiB; per step linear_scan {per_step[0]:g}, reverse "
+        f"{per_step[1]:g}")
+    del m, fns
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_scan_kernels():
+    """Phase 14c: at each stage shape, the forward kernel, the reverse kernel
+    and the staged kernel (nbuf 4 and 2) against their plain versions and the
+    least time the card could take (bytes: a, b read and h written, or a, h,
+    g read and da, db written, at 3.35 TB/s; 2 flops a step are far below
+    the FMA peak). No single PyTorch call computes the recurrence."""
+    from accunet_tpu_torch.ops.kernels import scan as S
+
+    g = torch.Generator("cuda").manual_seed(15)
+    times = {}
+    for name, b, l, d in SCAN_STAGES:
+        a, x = scan_inputs(g, b, l, d)
+        gy = torch.randn(b, l, d, generator=g, device="cuda")
+        h = S.linear_scan(a, x)
+        tensor_ms = a.numel() * 4 / HBM_BYTES_PER_S * 1e3
+        with torch.inference_mode():
+            rows = {
+                "linear_scan": (lambda: S.linear_scan(a, x), lambda: S.linear_scan_plain(a, x), 3),
+                "linear_scan_reverse": (lambda: S.linear_scan_reverse(a, h, gy),
+                                        lambda: S.linear_scan_grads_plain(a, h, gy), 5),
+                "linear_scan_staged": (lambda: S.dma_chunked_scan(a, x, nbuf=4),
+                                       lambda: S.linear_scan_plain(a, x), 3),
+                "linear_scan_staged_nbuf2": (lambda: S.dma_chunked_scan(a, x, nbuf=2),
+                                             lambda: S.linear_scan_plain(a, x), 3),
+            }
+            for kname, (run, plain, n_tensors) in rows.items():
+                k_ms, p_ms = time_ms(run), time_ms(plain, iters=3, warmup=1)
+                bound = n_tensors * tensor_ms
+                times[(kname, name)] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": None,
+                                        "bound_ms": bound, "bound_by": "bytes"}
+                log(f"  {kname:24s} {name} B{b} L{l:5d} D{d:5d}: kernel {k_ms:8.3f} ms   plain "
+                    f"{p_ms:8.3f} ms   bound {bound:7.3f} ms (bytes, {n_tensors} x "
+                    f"{a.numel() * 4 / 1e6:.0f} MB), {100 * bound / k_ms:.1f}% of it")
+        del a, x, gy, h
+    torch.cuda.empty_cache()
+    return times
+
+
 def ptxas_summary(log_text: str) -> str:
     regs = [int(m) for m in re.findall(r"Used (\d+) registers", log_text)]
     spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", log_text)]
@@ -665,6 +929,8 @@ def main() -> int:
         from accunet_tpu_torch.ops.kernels.hanc_block import hanc_block
         from accunet_tpu_torch.ops.kernels.hanc_mix import hanc_mix
         from accunet_tpu_torch.ops.kernels.respath import respath_level
+        from accunet_tpu_torch.ops.kernels.scan import (
+            dma_chunked_scan, linear_scan, linear_scan_reverse)
     except ImportError as e:
         print(f"chip_smoke: run from the root of the repository ({e})", file=sys.stderr)
         return 2
@@ -704,7 +970,7 @@ def main() -> int:
 
     log("[7] ACC_UNet through accunet_tpu_torch.cli.train on cuda, then --resume auto")
     counters["dwconv2d_wgrad"] = dwconv2d_wgrad
-    train_launches = run_train_cli(counters)
+    train_launches = run_train_cli(counters, "ACC_UNet", acc_train_launches)
     launches["train_cli_steps"] = train_launches["train_steps"]
     launches["train_cli_validation"] = train_launches["validation"]
 
@@ -718,12 +984,39 @@ def main() -> int:
     log("  " + json.dumps({"card": card, "acc_unet": rates, "train_step_fp32": train_rate,
                            "train_step_gpu_vs_cpu": train_cmp}))
 
+    log("[10] scan kernels vs plain versions (Segmamba's stage shapes, b8)")
+    worst.update(check_scan_kernels())
+
+    log("[11] ChunkedLinearScanFn gradients vs autograd of the plain scan")
+    check_scan_autograd()
+
+    log(f"[12] Segmamba, full width: scan kernel vs plain scan (b{B} {HW}x{HW}), GPU vs CPU")
+    sm_model = segmamba_model()
+    sm_cmp = compare_segmamba(sm_model)
+
+    log("[13] Segmamba through accunet_tpu_torch.cli.train on cuda, then --resume auto")
+    counters.update(linear_scan=linear_scan, linear_scan_reverse=linear_scan_reverse,
+                    linear_scan_staged=dma_chunked_scan)
+    sm_launches = run_train_cli(counters, "Segmamba", segmamba_train_launches)
+    launches["segmamba_train_cli_steps"] = sm_launches["train_steps"]
+    launches["segmamba_train_cli_validation"] = sm_launches["validation"]
+
+    log("[14] Segmamba timing")
+    sm_rates = time_segmamba(sm_model)
+    times.update({(k, c, "float32"): v for (k, c), v in time_scan_kernels().items()})
+    log("  " + json.dumps({"card": card, "segmamba": sm_rates, "segmamba_checks": sm_cmp}))
+
     timed_case = {"hanc_block": "cnv91", "respath_level": "rspth1.level1", "hanc_mix": "cnv72",
-                  "dwconv2d_wgrad": "cnv72"}
+                  "dwconv2d_wgrad": "cnv72", "linear_scan": "stage0",
+                  "linear_scan_staged": "stage0"}
     # source, the TPU kernel it replaces, and the path whose run gives
     # `launches`: the inference kernels' own path is the eval CLI (they run
     # in the train CLI only in its validation forwards), the wgrad's is the
-    # train CLI's train steps; `launches_by_path` has every path's count
+    # train CLI's train steps; `launches_by_path` has every path's count.
+    # The scan kernels' path is Segmamba's train CLI; linear_scan's count adds
+    # its reverse instantiation's (both given apart). linear_scan_staged is on
+    # no path (JAX never dispatches its TPU kernel either): its count there is
+    # 0, and it ran only in phases 10 and 14
     meta = {
         "hanc_block": ("accunet_tpu_torch/csrc/hanc_block.cu",
                        "accunet_tpu/ops/pallas/hanc_block.py:335", "eval_cli"),
@@ -733,17 +1026,30 @@ def main() -> int:
                      "eval_cli"),
         "dwconv2d_wgrad": ("accunet_tpu_torch/csrc/dwconv2d_wgrad.cu",
                            "accunet_tpu/ops/pallas/dwconv2d.py:76", "train_cli_steps"),
+        "linear_scan": ("accunet_tpu_torch/csrc/linear_scan.cu",
+                        "accunet_tpu/ops/pallas/scan.py:62", "segmamba_train_cli_steps"),
+        "linear_scan_staged": ("accunet_tpu_torch/csrc/linear_scan.cu",
+                               "accunet_tpu/ops/pallas/scan_dma.py:114",
+                               "segmamba_train_cli_steps"),
     }
+
+    def count(c, name):
+        return c[name] + c["linear_scan_reverse"] if name == "linear_scan" else c[name]
+
     kernels = []
     for name, (source, replaces, path) in meta.items():
         t = times[(name, timed_case[name], "float32")]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": launches[path][name], "launches_path": path,
-                        "launches_by_path": {p: c[name] for p, c in launches.items() if name in c},
+                        "launches": count(launches[path], name), "launches_path": path,
+                        "launches_by_path": {p: count(c, name) for p, c in launches.items()
+                                             if name in c},
                         "max_abs_err": worst[name],
                         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                         "shape": f"{timed_case[name]} fp32 b{B}"})
+        if name == "linear_scan":
+            kernels[-1]["launches_forward"] = launches[path]["linear_scan"]
+            kernels[-1]["launches_reverse"] = launches[path]["linear_scan_reverse"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
