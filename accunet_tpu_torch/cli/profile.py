@@ -3,6 +3,13 @@
     python -m accunet_tpu_torch.cli.profile --model ACC_UNet --img 224 --batch 8 \
         [--dtype bfloat16] [--steps 5] [--device cuda] [--train]
     python -m accunet_tpu_torch.cli.profile --model Segmamba [--train]
+    python -m accunet_tpu_torch.cli.profile --model ACC_UNet_W --img 512 --batch 2 \
+        [--model-kwargs "{'hybrid_expand_dw': True}"]
+
+ACC-UNet models are built with n_classes=1, as the JAX profile CLI does
+(accunet_tpu/cli/profile.py:42): for a multi-class configuration the 1x1
+head has 1 output channel instead of n_classes+1 (4 for 3 classes), which is
+noise beside the rest of the model.
 
 Runs the model with seeded random weights on one CUDA device, in eval mode
 (a forward per step) or with --train a train step (train-mode forward, the
@@ -37,6 +44,7 @@ FAMILIES = (
     ("hanc_block_kernel", "hanc_block"),
     ("respath_level_kernel", "respath_level"),
     ("hanc_mix_kernel", "hanc_mix"),
+    ("expand_dw_kernel", "expand_dw"),
     ("dwconv_wgrad", "dwconv2d_wgrad"),
     ("batch_norm", "batchnorm"),
     ("bn_fw", "batchnorm"),
@@ -92,6 +100,7 @@ def main(argv=None):
     from accunet_tpu_torch.config import get_config
     from accunet_tpu_torch.models import build as build_model, init_parameters
     from accunet_tpu_torch.ops.kernels.dwconv2d import dwconv2d_wgrad
+    from accunet_tpu_torch.ops.kernels.expand_dw import expand_dw
     from accunet_tpu_torch.ops.kernels.hanc_block import hanc_block
     from accunet_tpu_torch.ops.kernels.hanc_mix import hanc_mix
     from accunet_tpu_torch.ops.kernels.respath import respath_level
@@ -162,7 +171,7 @@ def main(argv=None):
 
             hooks += [mod.register_forward_pre_hook(pre), mod.register_forward_hook(post)]
         counters = {"hanc_block": hanc_block, "respath_level": respath_level,
-                    "hanc_mix": hanc_mix, "dwconv2d_wgrad": dwconv2d_wgrad,
+                    "hanc_mix": hanc_mix, "expand_dw": expand_dw, "dwconv2d_wgrad": dwconv2d_wgrad,
                     "linear_scan": linear_scan, "linear_scan_reverse": linear_scan_reverse}
         for fn in counters.values():
             fn.launches = 0

@@ -17,6 +17,15 @@ mode every block takes the unfused path: every k >= 2 HANC layer still runs
 the `hanc_mix` kernel forward, and every HANCBlock's depthwise conv computes
 its weight gradient with the `dwconv2d_wgrad` kernel.
 
+`hybrid_expand_dw=True` (default off, as JAX's ACCUNET_HYBRID_EXPAND_DW)
+runs the eval-mode front half (expand, BN, lrelu, depthwise, BN, lrelu) of
+every unfused HANCBlock whose interior width E = n_filts * inv_fctr is at
+least `hybrid_e_min` (JAX's ACCUNET_HYBRID_E_MIN, default 2048) as the
+`expand_dw` kernel; its HANC mix stays on `hanc_mix`. At n_filts=32 that is
+cnv72 alone (E = 128 * 34 = 4352); `hybrid_e_min=96` gives JAX's "hybrid
+all-E" variant (benchmarks/ab_acc_lite.py:73): every unfused block but the
+stem cnv11 (E = 9), i.e. cnv31-cnv72. The fused blocks keep `hanc_block`.
+
 `remat=True` (default off, as in JAX :73, :92-95) checkpoints each HANCBlock,
 ResPath and MLFC while gradients are recorded: their activations are
 recomputed in the backward instead of kept.
@@ -65,7 +74,8 @@ def _frozen_stats(module: nn.Module):
 class ACCUNet(nn.Module):
     def __init__(self, n_channels: int = 3, n_classes: int = 1, n_filts: int = 32,
                  variant: str = "base", final_sigmoid: bool = True,
-                 wide_decoder_block: bool = True, remat: bool = False):
+                 wide_decoder_block: bool = True, remat: bool = False,
+                 hybrid_expand_dw: bool = False, hybrid_e_min: int = 2048):
         super().__init__()
         f = n_filts
         self.n_classes, self.final_sigmoid, self.remat = n_classes, final_sigmoid, remat
@@ -75,7 +85,8 @@ class ACCUNet(nn.Module):
             # a level-1/2 block is fused when its width fits the kernel
             # (cin <= MAX_CIN); a wider one stays unfused, as in JAX
             fused = level12 and n_in <= MAX_CIN
-            return HANCBlock(n_in, n_out, k=k, inv_fctr=inv, fused=fused, defer_se=defer)
+            return HANCBlock(n_in, n_out, k=k, inv_fctr=inv, fused=fused, defer_se=defer,
+                             hybrid=hybrid_expand_dw, hybrid_e_min=hybrid_e_min)
 
         self.cnv11 = hanc(n_channels, f, 3)
         self.cnv12 = hanc(f, f, 3, level12=True)

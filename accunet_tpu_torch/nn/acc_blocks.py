@@ -8,10 +8,14 @@ a strict `load_state_dict`.
 Every block takes and returns NHWC tensors. In eval mode the level-1/2
 HANCBlocks and ResPaths built with `fused=True` run their fused kernels
 (ops/kernels), and every other HANC layer with k >= 2 runs the `hanc_mix`
-kernel. In train mode every block takes the unfused path; its HANC layers
-still run `hanc_mix` forward (`HancMixFn`) and its depthwise convs take
-their weight gradient from the `dwconv2d_wgrad` kernel. On a CPU tensor each
-kernel wrapper runs its plain PyTorch version.
+kernel. An unfused HANCBlock built with `hybrid=True` whose interior width
+E = n_filts * inv_fctr is at least `hybrid_e_min` runs its eval-mode front
+half (expand, BN, lrelu, depthwise, BN, lrelu) as the `expand_dw` kernel;
+its HANC mix (`hanc_mix`) and tail stay as they are. In train mode every
+block takes the unfused path; its HANC layers still run `hanc_mix` forward
+(`HancMixFn`) and its depthwise convs take their weight gradient from the
+`dwconv2d_wgrad` kernel. On a CPU tensor each kernel wrapper runs its plain
+PyTorch version.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from torch import nn
 
 from accunet_tpu_torch.ops.activation import lrelu
 from accunet_tpu_torch.ops.conv import conv1x1, conv2d, depthwise_conv2d
+from accunet_tpu_torch.ops.kernels.expand_dw import expand_dw
 from accunet_tpu_torch.ops.kernels.hanc_block import HANCBlockWeights, fold, hanc_block
 from accunet_tpu_torch.ops.kernels.hanc_mix import HancMixFn
 from accunet_tpu_torch.ops.kernels.respath import respath_level
@@ -152,19 +157,30 @@ class PendingSE(NamedTuple):
         return lrelu(self.y * self.gs[:, None, None, :].to(dt) + self.tb.to(dt))
 
 
+def _mat(conv: nn.Conv2d) -> torch.Tensor:  # 1x1 conv weight (O, I, 1, 1) -> (I, O)
+    return conv.weight.reshape(conv.weight.shape[:2]).t()
+
+
 class HANCBlock(nn.Module):
     """Inverted bottleneck: 1x1 expand -> depthwise 3x3 -> HANC -> residual BN
     -> 1x1 project -> SE.
 
     `fused=True` (the level-1/2 blocks of ACCUNet) runs the eval forward as
     the `hanc_block` kernel; `defer_se=True` then returns a `PendingSE` so the
-    next fused block applies this block's SE in its kernel prologue."""
+    next fused block applies this block's SE in its kernel prologue.
+
+    `hybrid=True` (JAX's ACCUNET_HYBRID_EXPAND_DW, nn/acc_blocks.py:387-403)
+    runs an unfused block's eval front half as the `expand_dw` kernel when
+    E >= `hybrid_e_min` (JAX's ACCUNET_HYBRID_E_MIN); the parameters are the
+    same either way."""
 
     def __init__(self, n_filts: int, out_channels: int, k: int = 3, inv_fctr: int = 3,
-                 fused: bool = False, defer_se: bool = False):
+                 fused: bool = False, defer_se: bool = False, hybrid: bool = False,
+                 hybrid_e_min: int = 2048):
         super().__init__()
         e = n_filts * inv_fctr
         self.k, self.fused, self.defer_se = k, fused, defer_se
+        self.hybrid, self.hybrid_e_min = hybrid, hybrid_e_min
         self.conv1 = nn.Conv2d(n_filts, e, 1)
         self.norm1 = BatchNorm(e)
         self.conv2 = nn.Conv2d(e, e, 3, padding=1, groups=e)
@@ -180,23 +196,43 @@ class HANCBlock(nn.Module):
             return self._forward_fused(inp)
         if isinstance(inp, PendingSE):
             inp = inp.apply()
-        x = lrelu(self.norm1(conv1x1(inp, self.conv1.weight, self.conv1.bias)))
-        x = lrelu(self.norm2(depthwise_conv2d(x, self.conv2.weight, self.conv2.bias)))
+        if self.takes_hybrid():
+            x = expand_dw(inp.contiguous(), *self.expand_dw_args())
+        else:
+            x = self.front_unfused(inp)
         x = self.hnc(x)
         x = self.norm(x + inp)
         x = lrelu(self.norm3(conv1x1(x, self.conv3.weight, self.conv3.bias)))
         return self.sqe(x)
 
-    def folded_weights(self) -> HANCBlockWeights:
-        def mat(conv):  # (O, I, 1, 1) -> (I, O)
-            return conv.weight.reshape(conv.weight.shape[:2]).t()
+    def takes_hybrid(self) -> bool:
+        """Whether the forward runs the front half as the `expand_dw` kernel:
+        eval mode, a block off the fused `hanc_block` path, E >= hybrid_e_min
+        (the gate of JAX `_hybrid_nhwc_ok` without its TPU tile conditions)."""
+        return (self.hybrid and not self.training and not self.fused
+                and self.conv2.weight.shape[0] >= self.hybrid_e_min)
 
+    def front_unfused(self, inp: torch.Tensor) -> torch.Tensor:
+        """The front half as separate ops: 1x1 expand, BN, lrelu, depthwise
+        3x3, BN, lrelu."""
+        x = lrelu(self.norm1(conv1x1(inp, self.conv1.weight, self.conv1.bias)))
+        return lrelu(self.norm2(depthwise_conv2d(x, self.conv2.weight, self.conv2.bias)))
+
+    def expand_dw_args(self):
+        """(w1 (cin,E), b1, wd (3,3,E), bd, bn1, bn2): `expand_dw`'s weights,
+        BNs as inference (scale, shift) pairs."""
+        return (_mat(self.conv1), self.conv1.bias, self._wd(), self.conv2.bias,
+                self.norm1.scale_shift(), self.norm2.scale_shift())
+
+    def _wd(self) -> torch.Tensor:  # (E, 1, 3, 3) -> (3, 3, E)
         e = self.conv2.weight.shape[0]
+        return self.conv2.weight.reshape(e, 9).t().reshape(3, 3, e)
+
+    def folded_weights(self) -> HANCBlockWeights:
         return fold(
-            mat(self.conv1), self.conv1.bias,
-            self.conv2.weight.reshape(e, 9).t().reshape(3, 3, e), self.conv2.bias,
+            _mat(self.conv1), self.conv1.bias, self._wd(), self.conv2.bias,
             self.hnc.mix_weight(), self.hnc.cnv.bias,
-            mat(self.conv3), self.conv3.bias,
+            _mat(self.conv3), self.conv3.bias,
             {"norm1": self.norm1.scale_shift(), "norm2": self.norm2.scale_shift(),
              "hnc": self.hnc.bn.scale_shift(), "norm": self.norm.scale_shift(),
              "norm3": self.norm3.scale_shift()},

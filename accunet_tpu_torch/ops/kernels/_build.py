@@ -40,6 +40,7 @@ SIGNATURES = {
     "accunet_linear_scan": [_P] * 3 + [_I] * 3 + [_P],
     "accunet_linear_scan_reverse": [_P] * 5 + [_I] * 3 + [_P],
     "accunet_linear_scan_staged": [_P] * 3 + [_I] * 5 + [_P],
+    "accunet_expand_dw": [_P] * 5 + [_I] * 6 + [_P],
 }
 
 

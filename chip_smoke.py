@@ -43,7 +43,23 @@ From the root of a checkout, with one CUDA device:
      checks 16 forward scans per train step and per validation forward and
      16 reverse scans per train step;
  14. times Segmamba inference and its train step, and each scan kernel per
-     stage against its plain version and its bound.
+     stage against its plain version and its bound;
+ 15. holds the expand_dw kernel (the hybrid HANCBlock front half) against its
+     plain version at cnv72 of ACC_UNet b8 224x224, (8,56,56,128) -> 4352,
+     at cnv72 of ACC_UNet_W b2 512x512, (2,128,128,128) -> 4352, and at a
+     ragged shape with a large BN1 shift, fp32 and bf16;
+ 16. runs ACC_UNet_W (3 classes, 512x512, batch 2, hybrid front half on)
+     through the eval entry point on a synthetic folder with class-id masks,
+     checks its metrics and (512, 512, 4) dumps and counts the launches per
+     forward: one expand_dw (cnv72) beside the hanc_block, respath_level and
+     hanc_mix counts of phase 4, whose ACC_UNet path launches no expand_dw;
+ 17. compares ACC_UNet_W mc 512x512 b2 on the GPU with the hybrid on and
+     off (same weights), then a b1 128x128 forward with hybrid_e_min=96
+     (the kernel at every unfused block but the stem) GPU vs CPU;
+ 18. times ACC_UNet_W mc 512x512 b2 inference, fp32 and bf16, hybrid on and
+     off, and expand_dw at both cnv72 shapes against its plain version, the
+     unfused front half it replaces (the port's conv1x1, BN, lrelu,
+     depthwise, BN, lrelu) and its bound.
 It prints a JSON line of the kernels, then as its last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 A failed phase raises, so the run exits non-zero and prints no result; so
@@ -68,6 +84,8 @@ import numpy as np
 import torch
 
 B, HW, NF = 8, 224, 32  # the main path: ACC_UNet, n_filts=32, 224x224, batch 8
+# the hybrid slice: ACC_UNet_W, 3 classes, 512x512, batch 2 (BASELINE config 4)
+W_B, W_HW, W_CLASSES = 2, 512, 3
 FP32_TOL = 1e-4  # max |kernel - plain| / max |plain| in fp32 (sums reassociate)
 # bf16: both sides compute in fp32 from the same bf16 inputs and round once;
 # a value on a rounding boundary may land one bf16 ulp (2^-8 relative) apart
@@ -78,7 +96,9 @@ MODEL_TOL = 1e-3
 # one train step, GPU vs CPU, fp32 (compare_train_step says how it is held)
 TRAIN_CMP_HW, TRAIN_TOL = 64, 1e-3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
+# H100 SXM peak operations per second by input type: fp32 outside the tensor
+# cores; bf16 and fp16 on the tensor cores (dense)
+PEAK_FLOPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12, torch.float16: 989e12}
 
 
 class SmokeError(RuntimeError):
@@ -124,6 +144,7 @@ class Case(NamedTuple):
     args: tuple
     flops: float
     library: Callable | None = None
+    unfused: Callable | None = None  # the separate torch ops a fused kernel replaces
 
 
 def nbytes(obj) -> int:
@@ -136,11 +157,13 @@ def nbytes(obj) -> int:
 
 def bound_ms(case: Case, out) -> tuple[float, str]:
     """The least time the card could take: each input read once and each
-    output written once at 3.35 TB/s, or the operations at the fp32 CUDA-core
-    peak of 67 TFLOP/s (every kernel here computes in fp32 FMAs), whichever
-    is larger (H100 SXM data sheet)."""
+    output written once at 3.35 TB/s, or the operations at the card's peak
+    for the type of the call's first input (fp32 67 TFLOP/s, bf16 989 on the
+    tensor cores, whatever the kernel itself computes in), whichever is
+    larger (H100 SXM data sheet)."""
+    dtype = next(a.dtype for a in case.args if isinstance(a, torch.Tensor))
     t_bytes = (nbytes(case.args) + nbytes(out)) / HBM_BYTES_PER_S * 1e3
-    t_ops = case.flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = case.flops / PEAK_FLOPS_PER_S[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -261,24 +284,36 @@ def check_kernels(cases):
     return worst
 
 
-def run_eval_cli(counters):
-    """Phase 4: the eval entry point on a synthetic ISIC-style folder."""
+# launches per eval forward of ACC_UNet and ACC_UNet_W at n_filts=32: the 7
+# fused blocks (4 of them chained), the 7 levels of rspth1/rspth2, the 9 HANC
+# layers with k >= 2 of the unfused blocks; with the hybrid on, cnv72's front half
+EVAL_LAUNCHES = {"hanc_block": 7, "respath_level": 7, "hanc_mix": 9, "expand_dw": 0}
+
+
+def run_eval_cli(counters, model="ACC_UNet", n_classes=1, hw=HW, batch=B, n=2 * B,
+                 model_kwargs=None, per_forward=EVAL_LAUNCHES):
+    """Phases 4 and 16: the eval entry point on a synthetic ISIC-style folder
+    of n images, masks binary or, for n_classes > 1, class ids 0..n_classes.
+    Checks the metrics CSV, the (hw, hw, 1 or n_classes+1) dumps and that the
+    run launched `per_forward` times its forwards of each kernel."""
     from accunet_tpu_torch.cli import eval as cli
 
+    out_ch = 1 if n_classes == 1 else n_classes + 1
     with tempfile.TemporaryDirectory() as tmp:
         rs = np.random.default_rng(0)
         for sub in ("images", "masks"):
             os.makedirs(os.path.join(tmp, "data", sub))
-        n = 2 * B
         for i in range(n):
             np.save(os.path.join(tmp, "data", "images", f"isic{i:03d}.npy"),
-                    rs.random((4, HW, HW), dtype=np.float32))
+                    rs.random((4, hw, hw), dtype=np.float32))
             np.save(os.path.join(tmp, "data", "masks", f"isic{i:03d}.npy"),
-                    (rs.random((HW, HW)) > 0.5).astype(np.float32))
-        argv = ["--model", "ACC_UNet", "--test-dir", os.path.join(tmp, "data"),
-                "--img-size", str(HW), "--batch", str(B), "--device", "cuda",
-                "--csv", os.path.join(tmp, "m.csv"), "--result", os.path.join(tmp, "test.result"),
-                "--dump-dir", os.path.join(tmp, "dump")]
+                    rs.integers(0, n_classes + 1, (hw, hw)).astype(np.float32))
+        argv = ["--model", model, "--test-dir", os.path.join(tmp, "data"),
+                "--n-classes", str(n_classes), "--img-size", str(hw), "--batch", str(batch),
+                "--device", "cuda", "--csv", os.path.join(tmp, "m.csv"),
+                "--result", os.path.join(tmp, "test.result"), "--dump-dir", os.path.join(tmp, "dump")]
+        if model_kwargs:
+            argv += ["--model-kwargs", model_kwargs]
         for fn in counters.values():
             fn.launches = 0
         t0 = time.perf_counter()
@@ -290,17 +325,23 @@ def run_eval_cli(counters):
             raise SmokeError(f"eval saw {res.n_images} images, expected {n}")
         with open(os.path.join(tmp, "m.csv")) as f:
             rows = list(csv.DictReader(f))
-        if len(rows) != n or not all(0.0 <= float(r["dice"]) <= 1.0 for r in rows):
-            raise SmokeError("metrics CSV incomplete or dice out of range")
-        for name in sorted(os.listdir(os.path.join(tmp, "dump"))):
+        if len(rows) != n or not all(0.0 <= float(r[k]) <= 1.0 for r in rows
+                                     for k in ("dice", "iou", "accuracy")):
+            raise SmokeError("metrics CSV incomplete or a metric out of [0, 1]")
+        dumps = sorted(os.listdir(os.path.join(tmp, "dump")))
+        if len(dumps) != n:
+            raise SmokeError(f"{len(dumps)} dumps for {n} images")
+        for name in dumps:
             out = np.load(os.path.join(tmp, "dump", name))["output"]
-            if out.shape != (HW, HW, 1) or not np.isfinite(out).all():
-                raise SmokeError(f"{name}: output {out.shape} not finite (HW, HW, 1)")
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise SmokeError(f"the eval path never launched {missing}")
-    log(f"  eval: {n} images in {seconds:.2f} s (build cached), dice {res.dice:.4f}, "
-        f"{res.seconds_per_image * 1e3:.2f} ms/image timed forward; launches {launches}")
+            if out.shape != (hw, hw, out_ch) or not np.isfinite(out).all():
+                raise SmokeError(f"{name}: output {out.shape} not finite {(hw, hw, out_ch)}")
+    forwards = -(-n // batch)
+    want = {k: per_forward.get(k, 0) * forwards for k in launches}
+    if launches != want:
+        raise SmokeError(f"the eval path launched {launches}, expected {want}")
+    log(f"  {model} eval ({n_classes} classes, {hw}x{hw}, b{batch}, kwargs {model_kwargs}): {n} "
+        f"images in {seconds:.2f} s, dice {res.dice:.4f}, {res.seconds_per_image * 1e3:.2f} "
+        f"ms/image timed forward; launches {launches} in {forwards} forwards")
     return launches
 
 
@@ -404,9 +445,9 @@ def acc_train_launches(steps, val_batches):
     each of the 16 k >= 2 HANC layers (every block unfused); per validation
     forward: 7 fused blocks, 7 ResPath levels, 9 HANC mixes."""
     return {"train_steps": {"hanc_block": 0, "respath_level": 0, "hanc_mix": 16 * steps,
-                            "dwconv2d_wgrad": 18 * steps},
-            "validation": {"hanc_block": 7 * val_batches, "respath_level": 7 * val_batches,
-                           "hanc_mix": 9 * val_batches, "dwconv2d_wgrad": 0}}
+                            "expand_dw": 0, "dwconv2d_wgrad": 18 * steps},
+            "validation": {**{k: v * val_batches for k, v in EVAL_LAUNCHES.items()},
+                           "dwconv2d_wgrad": 0}}
 
 
 def bn_stat_err(got, want, init):
@@ -565,24 +606,32 @@ def time_train_step():
     return out
 
 
-def seeded_model():
-    """ACC_UNet (n_filts=32, logits) with seeded weights and BN statistics
-    moved off their init values, so every folded affine is non-trivial."""
-    from accunet_tpu_torch.models import ACC_UNet, init_parameters
+def seeded_model(name="ACC_UNet", n_classes=1, **kw):
+    """An ACC-UNet model (n_filts=32, logits) with seeded weights and BN
+    statistics moved off their init values, so every folded affine is
+    non-trivial; `kw` go to the model (e.g. the hybrid switch)."""
+    from accunet_tpu_torch.models import build, init_parameters
+
+    model = init_parameters(build(name, n_channels=3, n_classes=n_classes, n_filts=NF,
+                                  final_sigmoid=False, **kw),
+                            torch.Generator().manual_seed(0))
+    return seeded_bns(model, 3).eval()
+
+
+def seeded_bns(module, seed):
+    """Move every BatchNorm of `module` off its init values (seeded)."""
     from accunet_tpu_torch.nn.acc_blocks import BatchNorm
 
-    model = init_parameters(ACC_UNet(3, 1, NF, final_sigmoid=False),
-                            torch.Generator().manual_seed(0))
-    g = torch.Generator().manual_seed(3)
+    g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
-        for mod in model.modules():
+        for mod in module.modules():
             if isinstance(mod, BatchNorm):
                 c = mod.num_features
                 mod.weight.copy_(1 + 0.1 * torch.randn(c, generator=g))
                 mod.bias.copy_(0.1 * torch.randn(c, generator=g))
                 mod.running_mean.copy_(0.1 * torch.randn(c, generator=g))
                 mod.running_var.copy_(1 + 0.1 * torch.rand(c, generator=g))
-    return model.eval()
+    return module
 
 
 # block outputs compared besides the logits (the logits of a random model are
@@ -658,10 +707,12 @@ def time_kernels(cases):
                 bound, bound_by = bound_ms(case, case.run())
                 k_ms, p_ms = time_ms(case.run), time_ms(case.plain)
                 lib_ms = time_ms(case.library) if case.library is not None else None
+                unf_ms = time_ms(case.unfused) if case.unfused is not None else None
             times[(case.kernel, case.name, str(dt)[6:])] = {
                 "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": bound,
-                "bound_by": bound_by}
+                "bound_by": bound_by, **({"unfused_ms": unf_ms} if unf_ms is not None else {})}
             lib = f"   library {lib_ms:8.3f} ms" if lib_ms is not None else ""
+            lib += f"   unfused ops {unf_ms:8.3f} ms" if unf_ms is not None else ""
             log(f"  {case.kernel:14s} {case.name:14s} {str(dt)[6:]:8s} kernel {k_ms:8.3f} ms   "
                 f"plain {p_ms:8.3f} ms{lib}   bound {bound:7.3f} ms ({bound_by})")
     return times
@@ -824,8 +875,8 @@ def segmamba_train_launches(steps, val_batches):
     """Per Segmamba train step: 16 forward scans (2 layers x 2 branches x 4
     stages) and their 16 reverse scans; per validation forward: 16 forward
     scans; nothing else of the port's kernels."""
-    zero = dict.fromkeys(("hanc_block", "respath_level", "hanc_mix", "dwconv2d_wgrad",
-                          "linear_scan_staged"), 0)
+    zero = dict.fromkeys(("hanc_block", "respath_level", "hanc_mix", "expand_dw",
+                          "dwconv2d_wgrad", "linear_scan_staged"), 0)
     return {"train_steps": {**zero, "linear_scan": SCANS_PER_FORWARD * steps,
                             "linear_scan_reverse": SCANS_PER_FORWARD * steps},
             "validation": {**zero, "linear_scan": SCANS_PER_FORWARD * val_batches,
@@ -911,6 +962,152 @@ def time_scan_kernels():
     return times
 
 
+# -------------------------------------------------------- hybrid front half
+# cnv72 (cin 128, inv_fctr 34, E 4352) at ACC_UNet b8 224x224 and at
+# ACC_UNet_W b2 512x512: the two maps the expand_dw kernel meets
+CNV72_SHAPES = (("cnv72.b8_224", (B, HW // 4, HW // 4, 4 * NF)),
+                ("cnv72.w_b2_512", (W_B, W_HW // 4, W_HW // 4, 4 * NF)))
+
+
+def expand_dw_cases(dev):
+    """Phase 15 and 18 cases: expand_dw at the two cnv72 shapes, with the
+    weights of a seeded cnv72-shaped HANCBlock (whose unfused front half is
+    the `unfused` yardstick), and at a ragged shape (13x17 map, cin 37, E
+    200) whose BN1 shift of ~2 makes the activated padding ring non-zero."""
+    from accunet_tpu_torch.models import init_parameters
+    from accunet_tpu_torch.nn.acc_blocks import HANCBlock
+    from accunet_tpu_torch.ops.kernels import expand_dw as ED
+
+    block = seeded_bns(init_parameters(HANCBlock(4 * NF, 4 * NF, 3, 34, hybrid=True),
+                                       torch.Generator().manual_seed(15)), 15).eval().to(dev)
+    g = torch.Generator(device=dev).manual_seed(15)
+
+    def rn(*shape, s=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * s
+
+    cin, e = 37, 200
+    ragged = (rn(cin, e, s=cin ** -0.5), rn(e, s=0.1), rn(3, 3, e, s=1 / 3), rn(e, s=0.1),
+              (1 + rn(e, s=0.1), 2 + rn(e, s=0.1)), (1 + rn(e, s=0.1), rn(e, s=0.1)))
+
+    def cases(dt):
+        out = []
+        blk = copy.deepcopy(block).to(dt).requires_grad_(False)
+        args = blk.expand_dw_args()
+        c72, e72 = args[0].shape
+        for name, shape in CNV72_SHAPES:
+            x = rn(*shape).to(dt)
+            out.append(Case("expand_dw", name, lambda x=x: ED.expand_dw(x, *args),
+                            lambda x=x: ED.expand_dw_plain(x, *args), (x, *args),
+                            2 * x[..., 0].numel() * e72 * (c72 + 9),
+                            unfused=lambda x=x: blk.front_unfused(x)))
+        x = rn(2, 13, 17, cin).to(dt)
+        out.append(Case("expand_dw", "ragged", lambda: ED.expand_dw(x, *ragged),
+                        lambda: ED.expand_dw_plain(x, *ragged), (x, *ragged),
+                        2 * 2 * 13 * 17 * e * (cin + 9)))
+        return out
+
+    return cases
+
+
+def check_unfused_front(cases):
+    """Phase 15b: at the cnv72 shapes in fp32, the kernel against the
+    unfused front half it replaces (cuBLAS GEMM, cuDNN BN and depthwise):
+    the same function by other sums, rel <= FP32_TOL."""
+    bad = []
+    for case in cases(torch.float32):
+        if case.unfused is None:
+            continue
+        with torch.inference_mode():
+            _, rel = rel_err(case.run(), case.unfused())
+        log(f"  {'ok ' if rel <= FP32_TOL else 'BAD'} expand_dw {case.name:14s} vs the unfused "
+            f"front half: rel {rel:.3e} (tol {FP32_TOL:g})")
+        if rel > FP32_TOL:
+            bad.append(case.name)
+    if bad:
+        raise SmokeError(f"expand_dw disagrees with the unfused front half: {bad}")
+
+
+def compare_w_hybrid():
+    """Phase 17: ACC_UNet_W (3 classes) with seeded weights, fp32. (a) 512x512
+    b2 on the GPU with the hybrid on (expand_dw at cnv72) against off, same
+    weights, logits and cnv72's output rel <= FP32_TOL; (b) b1 128x128 with
+    hybrid_e_min=96 (expand_dw at the 10 unfused blocks cnv31-cnv72) on the
+    GPU against the CPU (plain versions), rel <= MODEL_TOL. Returns the
+    hybrid-off model (CPU) for phase 18."""
+    from accunet_tpu_torch.ops.kernels.expand_dw import expand_dw
+
+    off = seeded_model("ACC_UNet_W", W_CLASSES)
+    on = seeded_model("ACC_UNet_W", W_CLASSES, hybrid_expand_dw=True)
+    on.load_state_dict(off.state_dict())
+    x = torch.randn(W_B, W_HW, W_HW, 3, device="cuda", generator=torch.Generator("cuda").manual_seed(17))
+    res, outs = {}, {}
+    for tag, m in (("off", off), ("on", on)):
+        gpu = copy.deepcopy(m).cuda()
+        before = expand_dw.launches
+        with torch.inference_mode():
+            outs[tag] = forward_with_taps(gpu, x)
+        res[f"expand_dw_{tag}"] = expand_dw.launches - before
+        del gpu
+    if (res["expand_dw_off"], res["expand_dw_on"]) != (0, 1):
+        raise SmokeError(f"expand_dw launches per forward off/on: {res}")
+    _, res["logits_rel"] = rel_err(outs["on"][0], outs["off"][0])
+    _, res["cnv72_rel"] = rel_err(outs["on"][1]["cnv72"], outs["off"][1]["cnv72"])
+    log(f"  W b{W_B} {W_HW}x{W_HW}, hybrid on vs off on the GPU: logits rel {res['logits_rel']:.3e}, "
+        f"cnv72 rel {res['cnv72_rel']:.3e} (tol {FP32_TOL:g}); expand_dw launches per forward "
+        f"{res['expand_dw_on']} on, {res['expand_dw_off']} off")
+    del outs
+    torch.cuda.empty_cache()
+    if max(res["logits_rel"], res["cnv72_rel"]) > FP32_TOL:
+        raise SmokeError("ACC_UNet_W with the hybrid front half disagrees with the unfused one")
+
+    all_e = seeded_model("ACC_UNet_W", W_CLASSES, hybrid_expand_dw=True, hybrid_e_min=96)
+    xs = torch.from_numpy(np.random.default_rng(17).standard_normal((1, 128, 128, 3),
+                                                                    dtype=np.float32))
+    with torch.inference_mode():
+        want, want_f = forward_with_taps(all_e, xs)
+        before = expand_dw.launches
+        got, got_f = forward_with_taps(copy.deepcopy(all_e).cuda(), xs.cuda())
+        res["expand_dw_e_min_96"] = expand_dw.launches - before
+    worst = max([rel_err(got, want)[1]] + [rel_err(got_f[n], want_f[n])[1] for n in TAPS])
+    res["e_min_96_gpu_vs_cpu_rel"] = worst
+    log(f"  W b1 128x128, hybrid_e_min=96 ({res['expand_dw_e_min_96']} expand_dw launches), GPU vs "
+        f"CPU: logits and block outputs rel <= {worst:.3e} (tol {MODEL_TOL:g})")
+    if res["expand_dw_e_min_96"] != 10 or worst > MODEL_TOL:
+        raise SmokeError("ACC_UNet_W with hybrid_e_min=96 on the GPU disagrees with the CPU")
+    return off, res
+
+
+def time_w_model(model):
+    """Phase 18a: ACC_UNet_W mc 512x512 b2 inference, fp32 and bf16, hybrid
+    off and on (the same weights), in turns off, on, on, off; peak memory."""
+    from accunet_tpu_torch.nn.acc_blocks import HANCBlock
+
+    x = torch.randn(W_B, W_HW, W_HW, 3, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(18))
+    rates = {}
+    for dt in (torch.float32, torch.bfloat16):
+        m = copy.deepcopy(model).to(device="cuda", dtype=dt)
+        name = str(dt)[6:]
+        for tag in ("off", "on", "on", "off"):
+            for blk in m.modules():
+                if isinstance(blk, HANCBlock):
+                    blk.hybrid = tag == "on"
+            torch.cuda.reset_peak_memory_stats()
+            with torch.inference_mode():
+                if not bool(m(x).isfinite().all()):
+                    raise SmokeError(f"non-finite W output in {dt}, hybrid {tag}")
+                ms = time_ms(lambda: m(x), iters=10, warmup=3)
+            r = rates.setdefault(f"{name}_hybrid_{tag}", {"ms_per_batch": [], "img_per_s": []})
+            r["ms_per_batch"].append(ms)
+            r["img_per_s"].append(W_B * 1e3 / ms)
+            r["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            log(f"  ACC_UNet_W mc b{W_B} {W_HW}x{W_HW} {name} hybrid {tag:3s}: {ms:.3f} ms/batch, "
+                f"{W_B * 1e3 / ms:.2f} img/s, peak {r['peak_mem_gib']:.2f} GiB")
+        del m
+        torch.cuda.empty_cache()
+    return rates
+
+
 def ptxas_summary(log_text: str) -> str:
     regs = [int(m) for m in re.findall(r"Used (\d+) registers", log_text)]
     spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", log_text)]
@@ -926,6 +1123,7 @@ def main() -> int:
         from accunet_tpu_torch.nn import acc_blocks  # noqa: F401
         from accunet_tpu_torch.ops.kernels import _build
         from accunet_tpu_torch.ops.kernels.dwconv2d import dwconv2d_wgrad
+        from accunet_tpu_torch.ops.kernels.expand_dw import expand_dw
         from accunet_tpu_torch.ops.kernels.hanc_block import hanc_block
         from accunet_tpu_torch.ops.kernels.hanc_mix import hanc_mix
         from accunet_tpu_torch.ops.kernels.respath import respath_level
@@ -959,7 +1157,8 @@ def main() -> int:
     worst = check_kernels(cases)
 
     log("[4] ACC_UNet through accunet_tpu_torch.cli.eval on cuda")
-    counters = {"hanc_block": hanc_block, "respath_level": respath_level, "hanc_mix": hanc_mix}
+    counters = {"hanc_block": hanc_block, "respath_level": respath_level, "hanc_mix": hanc_mix,
+                "expand_dw": expand_dw}
     launches = {"eval_cli": run_eval_cli(counters)}
 
     log("[5] whole model, GPU vs CPU")
@@ -1006,13 +1205,36 @@ def main() -> int:
     times.update({(k, c, "float32"): v for (k, c), v in time_scan_kernels().items()})
     log("  " + json.dumps({"card": card, "segmamba": sm_rates, "segmamba_checks": sm_cmp}))
 
+    log("[15] expand_dw vs its plain version (cnv72 of ACC_UNet b8 224x224 and of ACC_UNet_W b2 "
+        "512x512, a ragged shape) and vs the unfused front half")
+    ed_cases = expand_dw_cases(dev)
+    worst.update(check_kernels(ed_cases))
+    check_unfused_front(ed_cases)
+
+    log(f"[16] ACC_UNet_W ({W_CLASSES} classes, {W_HW}x{W_HW}, b{W_B}, hybrid on) through "
+        "accunet_tpu_torch.cli.eval on cuda")
+    launches["eval_cli_w"] = run_eval_cli(
+        counters, "ACC_UNet_W", W_CLASSES, W_HW, W_B, 2 * W_B, "{'hybrid_expand_dw': True}",
+        {**EVAL_LAUNCHES, "expand_dw": 1})
+
+    log(f"[17] ACC_UNet_W mc: hybrid on vs off (b{W_B} {W_HW}x{W_HW}), hybrid_e_min=96 GPU vs CPU")
+    w_model, w_cmp = compare_w_hybrid()
+
+    log("[18] ACC_UNet_W timing, expand_dw timing")
+    w_rates = time_w_model(w_model)
+    times.update(time_kernels(ed_cases))
+    log("  " + json.dumps({"card": card, "acc_unet_w_mc_512_b2": w_rates, "w_checks": w_cmp}))
+
     timed_case = {"hanc_block": "cnv91", "respath_level": "rspth1.level1", "hanc_mix": "cnv72",
                   "dwconv2d_wgrad": "cnv72", "linear_scan": "stage0",
-                  "linear_scan_staged": "stage0"}
+                  "linear_scan_staged": "stage0", "expand_dw": "cnv72.w_b2_512"}
     # source, the TPU kernel it replaces, and the path whose run gives
     # `launches`: the inference kernels' own path is the eval CLI (they run
     # in the train CLI only in its validation forwards), the wgrad's is the
     # train CLI's train steps; `launches_by_path` has every path's count.
+    # expand_dw's path is the W eval CLI (phase 16; off by default, so 0 on
+    # the ACC_UNet eval path); its entry adds the unfused front half's time
+    # and both cnv72 shapes.
     # The scan kernels' path is Segmamba's train CLI; linear_scan's count adds
     # its reverse instantiation's (both given apart). linear_scan_staged is on
     # no path (JAX never dispatches its TPU kernel either): its count there is
@@ -1031,6 +1253,8 @@ def main() -> int:
         "linear_scan_staged": ("accunet_tpu_torch/csrc/linear_scan.cu",
                                "accunet_tpu/ops/pallas/scan_dma.py:114",
                                "segmamba_train_cli_steps"),
+        "expand_dw": ("accunet_tpu_torch/csrc/expand_dw.cu",
+                      "accunet_tpu/ops/pallas/expand_dw.py:77", "eval_cli_w"),
     }
 
     def count(c, name):
@@ -1046,7 +1270,12 @@ def main() -> int:
                         "max_abs_err": worst[name],
                         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-                        "shape": f"{timed_case[name]} fp32 b{B}"})
+                        "shape": f"{timed_case[name]} fp32"
+                                 + ("" if name == "expand_dw" else f" b{B}")})
+        if name == "expand_dw":
+            kernels[-1]["unfused_ms"] = t["unfused_ms"]
+            kernels[-1]["by_shape"] = {f"{c} {d}": times[("expand_dw", c, d)]
+                                       for c, _ in CNV72_SHAPES for d in ("float32", "bfloat16")}
         if name == "linear_scan":
             kernels[-1]["launches_forward"] = launches[path]["linear_scan"]
             kernels[-1]["launches_reverse"] = launches[path]["linear_scan_reverse"]

@@ -173,22 +173,42 @@ def test_block_wider_than_the_fused_kernel_stays_unfused():
     np.testing.assert_allclose(got, want, **FUSED)
 
 
-@pytest.mark.parametrize("variant,n_classes", [("base", 1), ("w", 3)])
-def test_acc_unet_matches_jax(variant, n_classes):
-    """Whole model at n_filts=8, 32x32, batch 1: the port (fused plain
-    versions on CPU) vs the JAX model at s2d_levels=0 (all-XLA)."""
-    x = np.random.RandomState(1).rand(1, 32, 32, 3).astype(np.float32)
-    jmod = JaxACCUNet(3, n_classes, 8, variant=variant, s2d_levels=0)
-    # the tree's shapes by abstract evaluation, filled from numpy
-    template = jax.eval_shape(lambda: jmod.init(jax.random.PRNGKey(0), jnp.asarray(x)))
-    v = _numpy_tree(template, 2)
-    want = np.asarray(jax.jit(lambda v, x: jmod.apply(v, x, train=False))(v, jnp.asarray(x)))
+@pytest.fixture(scope="module")
+def jax_acc_unet():
+    """(variant, n_classes) -> (x, template, variables, JAX logits) of the
+    whole JAX model at n_filts=8, 32x32, batch 1, s2d_levels=0 (all-XLA),
+    computed once per module: the hybrid test reuses the W model's output
+    instead of compiling it again."""
+    cache = {}
 
-    port = ACCUNet(3, n_classes, 8, variant=variant)
+    def get(variant, n_classes):
+        if (variant, n_classes) not in cache:
+            x = np.random.RandomState(1).rand(1, 32, 32, 3).astype(np.float32)
+            jmod = JaxACCUNet(3, n_classes, 8, variant=variant, s2d_levels=0)
+            # the tree's shapes by abstract evaluation, filled from numpy
+            template = jax.eval_shape(lambda: jmod.init(jax.random.PRNGKey(0), jnp.asarray(x)))
+            v = _numpy_tree(template, 2)
+            want = jax.jit(lambda v, x: jmod.apply(v, x, train=False))(v, jnp.asarray(x))
+            cache[variant, n_classes] = (x, template, v, np.asarray(want))
+        return cache[variant, n_classes]
+
+    return get
+
+
+def _port_logits(port, x, v):
     port.load_state_dict(state_dict_from_jax(v), strict=True)
     port.eval()
     with torch.no_grad():
-        got = port(torch.from_numpy(x)).numpy()
+        return port(torch.from_numpy(x)).numpy()
+
+
+@pytest.mark.parametrize("variant,n_classes", [("base", 1), ("w", 3)])
+def test_acc_unet_matches_jax(jax_acc_unet, variant, n_classes):
+    """Whole model at n_filts=8, 32x32, batch 1: the port (fused plain
+    versions on CPU) vs the JAX model at s2d_levels=0 (all-XLA)."""
+    x, template, v, want = jax_acc_unet(variant, n_classes)
+    port = ACCUNet(3, n_classes, 8, variant=variant)
+    got = _port_logits(port, x, v)
     assert got.shape == want.shape == (1, 32, 32, 1 if n_classes == 1 else n_classes + 1)
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want, **FUSED)
@@ -197,6 +217,23 @@ def test_acc_unet_matches_jax(variant, n_classes):
     back = import_torch_state(template, port.state_dict(), strict=True)
     for a, b in zip(jax.tree_util.tree_leaves(back), jax.tree_util.tree_leaves(v)):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_acc_unet_hybrid_matches_jax(jax_acc_unet, monkeypatch):
+    """ACC_UNet_W, n_classes 3, with the hybrid front half at every unfused
+    block with E >= 96 (cnv32 to cnv72 at n_filts=8; the plain version of
+    expand_dw on CPU) vs the same JAX output as test_acc_unet_matches_jax;
+    the parameter tree loads strictly, as without the hybrid."""
+    from accunet_tpu_torch.ops.kernels import expand_dw as ED
+
+    x, _, v, want = jax_acc_unet("w", 3)
+    calls = []
+    plain = ED.expand_dw_plain
+    monkeypatch.setattr(ED, "expand_dw_plain", lambda *a: calls.append(a[1].shape[1]) or plain(*a))
+    got = _port_logits(ACCUNet(3, 3, 8, variant="w", hybrid_expand_dw=True, hybrid_e_min=96),
+                       x, v)
+    assert calls == [96, 96, 192, 192, 384, 384, 192, 192, 1088]
+    np.testing.assert_allclose(got, want, **FUSED)
 
 
 def test_port_never_imports_jax():
@@ -255,6 +292,7 @@ def test_profile_cli_refuses_the_cpu():
     ("void accunet::(anonymous namespace)::dwconv_wgrad_partial_kernel<float, 3, 3>()",
      "dwconv2d_wgrad"),
     ("void accunet::(anonymous namespace)::dwconv_wgrad_sum_kernel(float const*)", "dwconv2d_wgrad"),
+    ("void accunet::(anonymous namespace)::expand_dw_kernel<__nv_bfloat16>(int)", "expand_dw"),
     ("void cudnn::bn_fw_inf_1C11_kernel_NHWC<float, float, true, true>(float)", "batchnorm"),
     ("void at::native::batch_norm_transform_input_channels_last_kernel<c10::BFloat16>", "batchnorm"),
     ("sm90_xmma_gemm_f32f32_tf32f32_f32_tn_n_tilesize128x128x32", "gemm/conv"),
