@@ -1,6 +1,5 @@
 // Shared pieces of the port's CUDA kernels: dtype conversion, the activation,
-// dynamic shared memory, and the HANC pyramid helpers used by both
-// hanc_mix.cu and hanc_block.cu.
+// dynamic shared memory, and the HANC pyramid helpers of hanc_block.cu.
 //
 // Conventions of every kernel here: activations are NHWC float or bf16,
 // weights and affines fp32, all arithmetic in fp32; one CTA of kThreads (8

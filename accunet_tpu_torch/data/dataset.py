@@ -9,9 +9,11 @@ Experiments/Load_Dataset.py:
   * `<root>/img/*.png` + `<root>/labelcol/*_segmentation.png|.png` — the
     earlier PNG generation, greyscale or RGB, values scaled to [0,1].
 
-Resizing uses the numpy half-pixel-centre bilinear/nearest resize (the
-convention of cv2's INTER_LINEAR / INTER_NEAREST); the native and cv2
-loaders of the JAX package are not ported yet.
+Resizing is numpy, without cv2: the bilinear resize samples half-pixel
+centres (cv2's INTER_LINEAR, within 1.1e-7); the nearest resize (masks) takes
+source index min(floor(i * (1.0 / (size / n))), n - 1) in float64, the rule of
+cv2's INTER_NEAREST, which the JAX package calls, pixel for pixel. The
+native loader of the JAX package is not ported yet.
 """
 
 from __future__ import annotations
@@ -23,16 +25,18 @@ import numpy as np
 
 
 def _resize_image(img: np.ndarray, size: int, nearest: bool) -> np.ndarray:
-    """2D resize to (size, size), half-pixel-centre sampling."""
+    """2D resize to (size, size): nearest as cv2's INTER_NEAREST (the scale
+    is the reciprocal of the scale factor, both in float64), else bilinear
+    with half-pixel centres."""
     if img.shape[0] == size and img.shape[1] == size:
         return img
     h, w = img.shape[:2]
+    if nearest:
+        yi = np.minimum(np.floor(np.arange(size) * (1.0 / (size / h))).astype(int), h - 1)
+        xi = np.minimum(np.floor(np.arange(size) * (1.0 / (size / w))).astype(int), w - 1)
+        return img[yi][:, xi]
     ys = (np.arange(size) + 0.5) * h / size - 0.5
     xs = (np.arange(size) + 0.5) * w / size - 0.5
-    if nearest:
-        yi = np.clip(np.round(ys).astype(int), 0, h - 1)
-        xi = np.clip(np.round(xs).astype(int), 0, w - 1)
-        return img[yi][:, xi]
     y0 = np.clip(np.floor(ys).astype(int), 0, h - 1)
     x0 = np.clip(np.floor(xs).astype(int), 0, w - 1)
     y1 = np.clip(y0 + 1, 0, h - 1)

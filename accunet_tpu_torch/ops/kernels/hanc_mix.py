@@ -5,17 +5,18 @@
 Replaces the TPU kernel `hanc_mix` (accunet_tpu/ops/pallas/hanc.py:154,
 body `_kernel` :68-120), which ran the whole telescope per row tile in VMEM.
 
-Kernel (`csrc/hanc_mix.cu`): one CTA per (image, 4x8-pixel tile, 32*NJ
-output channels). Per 16-channel chunk it stages the tile, builds the avg/max
-pyramid in shared memory, and runs the 2k-1 mixes as one grouped product
-into fp32 registers; the upsample-adds telescope in the epilogue and y is
-written once. What bounds it on the card: the mixes are fp32 FMAs on CUDA
-cores fed from shared memory (0.75 shared-memory loads per FMA at 128 output
-channels), and at the widest layer (cnv72, C=4352) every CTA re-reads the
-11 MB weight from L2.
-The design keeps the full-resolution map to one read of x and one write of y
-(the pyramid and the partial sums never reach device memory); tensor cores
-and larger tiles are later work.
+Kernel (`csrc/hanc_mix.cu`): a grouped GEMM on the tensor cores (mma.sync;
+bf16 m16n8k16 in bf16, 3xTF32 m16n8k8 in fp32), one CTA per (image, pixel
+tile of 128 or 256 pixels, 16-128 output channels). A ring of 3
+shared-memory stages, filled by cp.async, holds the next K-chunks of x and of
+the 2k-1 weight slabs; each K-chunk is pooled into the tile's avg/max pyramid
+one iteration ahead of its products, with one barrier per chunk. The
+upsample-adds telescope in the epilogue and y is written once. In bf16 the
+wrapper rounds w to bf16, as JAX's kernel does (`w.astype(x.dtype)`). What
+bounds it on the card: in fp32 the tensor cores at 3xTF32 (three products per
+multiply-add), in bf16 the bytes of x; every CTA streams the weight of its
+output columns from L2 once per pixel tile. `TILES` names the kernel's tiles;
+`tile=0` picks one by the output width and type.
 """
 
 from __future__ import annotations
@@ -50,9 +51,16 @@ def hanc_mix_reference(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     return (y + bias.to(ct)).to(x.dtype)
 
 
-def hanc_mix(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, k: int) -> torch.Tensor:
+# the kernel's tiles: pixels (rows x columns) x output channels per CTA
+TILES = {1: "8x16 x 128", 3: "8x16 x 32", 4: "8x16 x 16", 5: "16x16 x 64"}
+
+
+def hanc_mix(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, k: int,
+             tile: int = 0) -> torch.Tensor:
     """HANC mix (pre-BN). x (B,H,W,C) float32/bfloat16, w (C, 2k-1, Cout),
-    bias (Cout,); k in {2, 3}; H and W divisible by 2^(k-1)."""
+    bias (Cout,); k in {2, 3}; H and W divisible by 2^(k-1). `tile` (CUDA
+    only): 0 picks the kernel's tile by the output width and type, a key of
+    `TILES` forces that tile (the tile sweep, tools/hanc_mix_sweep.py)."""
     if x.device.type == "cpu":
         return hanc_mix_reference(x, w, bias, k)
     b, h, wd, c = x.shape
@@ -60,16 +68,19 @@ def hanc_mix(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, k: int) -> to
         raise ValueError(f"hanc_mix kernel takes k in (2, 3), got {k}")
     if h % 2 ** (k - 1) or wd % 2 ** (k - 1):
         raise ValueError(f"spatial dims {h}x{wd} not divisible by {2 ** (k - 1)}")
+    if tile and tile not in TILES:
+        raise ValueError(f"tile {tile} is not one of {sorted(TILES)}")
     _build.require(x, "x")
+    code = _build.dtype_code(x)
     cout = w.shape[-1]
-    wk = w.float().contiguous()
+    wk = w.to(x.dtype).contiguous()
     bk = bias.float().contiguous()
     _build.require(wk, "w", (c, 2 * k - 1, cout), device=x.device)
     _build.require(bk, "bias", (cout,), device=x.device)
     y = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)
     err = _build.load_library().accunet_hanc_mix(
         x.data_ptr(), wk.data_ptr(), bk.data_ptr(), y.data_ptr(),
-        b, h, wd, c, cout, k, _build.dtype_code(x), _build.stream_of(x),
+        b, h, wd, c, cout, k, tile, code, _build.stream_of(x),
     )
     _build.check(err, "accunet_hanc_mix")
     hanc_mix.launches += 1

@@ -29,7 +29,9 @@ From the root of a checkout, with one CUDA device:
   9. times ACC_UNet b8 224x224 inference in fp32 and bf16, its fp32 train
      step, and each kernel against its plain version and, for the wgrad, the
      one PyTorch call that computes the same function (CUDA events, warm-up
-     excluded), beside the least time the card could take for it;
+     excluded), beside the least time the card could take for it (for
+     hanc_mix also the least time of its own path: 3xTF32 on the tensor
+     cores in fp32);
  10. holds the scan kernels (linear_scan forward and reverse, the staged
      dma_chunked_scan) against their plain versions at the four stage shapes
      of Segmamba b8 224x224, and the staged kernel bitwise against
@@ -87,8 +89,11 @@ B, HW, NF = 8, 224, 32  # the main path: ACC_UNet, n_filts=32, 224x224, batch 8
 # the hybrid slice: ACC_UNet_W, 3 classes, 512x512, batch 2 (BASELINE config 4)
 W_B, W_HW, W_CLASSES = 2, 512, 3
 FP32_TOL = 1e-4  # max |kernel - plain| / max |plain| in fp32 (sums reassociate)
-# bf16: both sides compute in fp32 from the same bf16 inputs and round once;
-# a value on a rounding boundary may land one bf16 ulp (2^-8 relative) apart
+# bf16: both sides compute in fp32 from the same bf16 inputs and round once
+# (a value on a rounding boundary may land one bf16 ulp, 2^-8 relative,
+# apart); hanc_mix also rounds w and its pools to bf16 before the product, as
+# JAX's kernel does, where the plain version keeps them in fp32. The measured
+# bf16 errors are printed in phase 3 and in the kernels line.
 BF16_TOL = 1e-2
 # whole model, GPU (kernels) vs CPU (plain versions), fp32: relative error of
 # the logits and of the block outputs, absolute error of the probabilities
@@ -99,6 +104,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # H100 SXM peak operations per second by input type: fp32 outside the tensor
 # cores; bf16 and fp16 on the tensor cores (dense)
 PEAK_FLOPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12, torch.float16: 989e12}
+TF32_FLOPS_PER_S = 495e12  # the tensor cores in TF32 (dense)
 
 
 class SmokeError(RuntimeError):
@@ -136,7 +142,11 @@ def rel_err(got, want) -> tuple[float, float]:
 
 class Case(NamedTuple):
     """One kernel call at a main-path shape: `run` and `plain` are closures
-    over `args`; `flops` counts the operations the function needs."""
+    over `args`; `flops` counts the operations the function needs. `own_path`
+    (operations per multiply-add pair counted in `flops`, peak operations per
+    second) prices the kernel's own arithmetic where it differs from the input
+    type's peak: hanc_mix in fp32 does each product three times on the tensor
+    cores (3xTF32)."""
     kernel: str
     name: str
     run: Callable
@@ -145,6 +155,7 @@ class Case(NamedTuple):
     flops: float
     library: Callable | None = None
     unfused: Callable | None = None  # the separate torch ops a fused kernel replaces
+    own_path: tuple[float, float] | None = None
 
 
 def nbytes(obj) -> int:
@@ -155,15 +166,17 @@ def nbytes(obj) -> int:
     return 0
 
 
-def bound_ms(case: Case, out) -> tuple[float, str]:
+def bound_ms(case: Case, out, factor: float = 1.0, peak: float | None = None
+             ) -> tuple[float, str]:
     """The least time the card could take: each input read once and each
-    output written once at 3.35 TB/s, or the operations at the card's peak
-    for the type of the call's first input (fp32 67 TFLOP/s, bf16 989 on the
-    tensor cores, whatever the kernel itself computes in), whichever is
-    larger (H100 SXM data sheet)."""
+    output written once at 3.35 TB/s, or `factor` x the operations at `peak`,
+    by default the card's peak for the type of the call's first input (fp32
+    67 TFLOP/s, bf16 989 on the tensor cores, whatever the kernel itself
+    computes in), whichever is larger (H100 SXM data sheet). Called with
+    `*case.own_path` it is the least time of the kernel's own path."""
     dtype = next(a.dtype for a in case.args if isinstance(a, torch.Tensor))
     t_bytes = (nbytes(case.args) + nbytes(out)) / HBM_BYTES_PER_S * 1e3
-    t_ops = case.flops / PEAK_FLOPS_PER_S[dtype] * 1e3
+    t_ops = factor * case.flops / (peak or PEAK_FLOPS_PER_S[dtype]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -235,9 +248,10 @@ def kernel_cases(dev):
                                      ("cnv72", HW // 4, 136 * NF, 4 * NF, 3)]:
             args = [rn(B, hw, hw, c).to(dt), rn(c, 2 * k - 1, cout, s=1 / c ** 0.5),
                     rn(cout, s=0.1), k]
+            own = (3, TF32_FLOPS_PER_S) if dt == torch.float32 else (1, PEAK_FLOPS_PER_S[dt])
             out.append(Case("hanc_mix", name, lambda a=args: HM.hanc_mix(*a),
                             lambda a=args: HM.hanc_mix_reference(*a),
-                            tuple(args[:3]), mix_flops(B * hw * hw, c, cout, k)))
+                            tuple(args[:3]), mix_flops(B * hw * hw, c, cout, k), own_path=own))
         # depthwise weight gradients of the train step: cnv12 (E=96), cnv52
         # and cnv61 (E=1536), cnv72 (E=4352)
         for name, hw, c in [("cnv12", HW, 3 * NF), ("cnv52", HW // 16, 48 * NF),
@@ -252,10 +266,11 @@ def kernel_cases(dev):
     return cases
 
 
-def check_kernels(cases):
-    """Phase 3. Returns {kernel: max abs error in fp32}; raises after
-    reporting every disagreement."""
+def check_kernels(cases, worst_bf16=None):
+    """Phase 3. Returns {kernel: max abs error in fp32} and adds the bf16
+    ones to `worst_bf16`; raises after reporting every disagreement."""
     worst, bad = {}, []
+    worst_bf16 = {} if worst_bf16 is None else worst_bf16
     for dt, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
         for kname, cname, kern, plain, *_ in cases(dt):
             got = kern()
@@ -274,8 +289,8 @@ def check_kernels(cases):
             ok = rel <= tol
             log(f"  {'ok ' if ok else 'BAD'} {kname:13s} {cname:14s} {str(dt)[6:]:8s} "
                 f"max_abs_err {abs_err:.3e}  rel {rel:.3e}  (tol {tol:g})")
-            if dt == torch.float32:
-                worst[kname] = max(worst.get(kname, 0.0), abs_err)
+            into = worst if dt == torch.float32 else worst_bf16
+            into[kname] = max(into.get(kname, 0.0), abs_err)
             if not ok:
                 bad.append(f"{kname} {cname} {dt}")
             del got, want
@@ -704,17 +719,22 @@ def time_kernels(cases):
     for dt in (torch.float32, torch.bfloat16):
         for case in cases(dt):
             with torch.inference_mode():
-                bound, bound_by = bound_ms(case, case.run())
+                out = case.run()
+                bound, bound_by = bound_ms(case, out)
+                own = bound_ms(case, out, *case.own_path) if case.own_path else None
+                del out
                 k_ms, p_ms = time_ms(case.run), time_ms(case.plain)
                 lib_ms = time_ms(case.library) if case.library is not None else None
                 unf_ms = time_ms(case.unfused) if case.unfused is not None else None
             times[(case.kernel, case.name, str(dt)[6:])] = {
                 "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": bound,
-                "bound_by": bound_by, **({"unfused_ms": unf_ms} if unf_ms is not None else {})}
+                "bound_by": bound_by, **({"unfused_ms": unf_ms} if unf_ms is not None else {}),
+                **({"own_bound_ms": own[0], "own_bound_by": own[1]} if own else {})}
             lib = f"   library {lib_ms:8.3f} ms" if lib_ms is not None else ""
             lib += f"   unfused ops {unf_ms:8.3f} ms" if unf_ms is not None else ""
+            lib += f"   own path's bound {own[0]:7.3f} ms ({own[1]})" if own else ""
             log(f"  {case.kernel:14s} {case.name:14s} {str(dt)[6:]:8s} kernel {k_ms:8.3f} ms   "
-                f"plain {p_ms:8.3f} ms{lib}   bound {bound:7.3f} ms ({bound_by})")
+                f"plain {p_ms:8.3f} ms   bound {bound:7.3f} ms ({bound_by}){lib}")
     return times
 
 
@@ -1154,7 +1174,8 @@ def main() -> int:
 
     log("[3] kernels vs plain versions (main-path shapes, b8)")
     cases = kernel_cases(dev)
-    worst = check_kernels(cases)
+    worst_bf16 = {}
+    worst = check_kernels(cases, worst_bf16)
 
     log("[4] ACC_UNet through accunet_tpu_torch.cli.eval on cuda")
     counters = {"hanc_block": hanc_block, "respath_level": respath_level, "hanc_mix": hanc_mix,
@@ -1208,7 +1229,7 @@ def main() -> int:
     log("[15] expand_dw vs its plain version (cnv72 of ACC_UNet b8 224x224 and of ACC_UNet_W b2 "
         "512x512, a ragged shape) and vs the unfused front half")
     ed_cases = expand_dw_cases(dev)
-    worst.update(check_kernels(ed_cases))
+    worst.update(check_kernels(ed_cases, worst_bf16))
     check_unfused_front(ed_cases)
 
     log(f"[16] ACC_UNet_W ({W_CLASSES} classes, {W_HW}x{W_HW}, b{W_B}, hybrid on) through "
@@ -1267,11 +1288,17 @@ def main() -> int:
                         "launches": count(launches[path], name), "launches_path": path,
                         "launches_by_path": {p: count(c, name) for p, c in launches.items()
                                              if name in c},
-                        "max_abs_err": worst[name],
+                        "max_abs_err": worst[name], "max_abs_err_bf16": worst_bf16.get(name),
                         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                         "shape": f"{timed_case[name]} fp32"
                                  + ("" if name == "expand_dw" else f" b{B}")})
+        if name == "hanc_mix":  # the bound of its own path: 3xTF32 in fp32, bf16 mma
+            kernels[-1]["own_bound_ms"] = t["own_bound_ms"]
+            kernels[-1]["own_bound_by"] = t["own_bound_by"]
+            kernels[-1]["by_shape"] = {f"{c} {d}": times[("hanc_mix", c, d)]
+                                       for c in ("cnv11", "cnv31", "cnv61", "cnv72")
+                                       for d in ("float32", "bfloat16")}
         if name == "expand_dw":
             kernels[-1]["unfused_ms"] = t["unfused_ms"]
             kernels[-1]["by_shape"] = {f"{c} {d}": times[("expand_dw", c, d)]

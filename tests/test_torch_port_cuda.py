@@ -51,6 +51,10 @@ def _close(got, want, tol):
 @pytest.mark.parametrize("dt", sorted(DTYPES))
 @pytest.mark.parametrize("b,h,w,c,cout,k", [
     (1, 8, 8, 5, 3, 2), (2, 12, 20, 17, 70, 3), (1, 6, 10, 16, 33, 2), (1, 28, 28, 40, 130, 2),
+    # cnv72's width (3xTF32 accumulated over K=4352), Cout across column
+    # blocks, a pool-aligned map that is not tile-aligned, the cnv11 stem
+    (1, 16, 16, 4352, 128, 3), (1, 12, 20, 96, 512, 2), (2, 20, 36, 37, 70, 3),
+    (2, 32, 32, 9, 3, 3),
 ])
 def test_hanc_mix_kernel(dev, dt, b, h, w, c, cout, k):
     dtype, tol = DTYPES[dt]
@@ -62,6 +66,19 @@ def test_hanc_mix_kernel(dev, dt, b, h, w, c, cout, k):
     torch.cuda.synchronize()
     assert HM.hanc_mix.launches == before + 1
     _close(y, HM.hanc_mix_reference(x, wt, bias, k), tol)
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("tile", sorted(HM.TILES))
+@pytest.mark.parametrize("k", [2, 3])
+def test_hanc_mix_every_tile(dev, dt, tile, k):
+    """Each of the kernel's tiles (the tile sweep's choices), forced, on a
+    ragged map with ragged K-chunks and output columns."""
+    dtype, tol = DTYPES[dt]
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = _rn(g, dev, 2, 20, 36, 37).to(dtype)
+    wt, bias = _rn(g, dev, 37, 2 * k - 1, 70, s=37 ** -0.5), _rn(g, dev, 70, s=0.1)
+    _close(HM.hanc_mix(x, wt, bias, k, tile=tile), HM.hanc_mix_reference(x, wt, bias, k), tol)
 
 
 @pytest.mark.parametrize("dt", sorted(DTYPES))
