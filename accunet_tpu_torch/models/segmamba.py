@@ -16,7 +16,7 @@ step as many reverse ones.
 Only the baseline is ported: block="plain", use_gsc=False, no text fusion,
 no final refine, no deep supervision. The other axes of the family (GSC,
 the hybrid and Spatial-Mamba blocks, text fusion, FKAN refine, deep
-supervision heads) raise NotImplementedError (ROADMAP Queue 1 item 9).
+supervision heads) raise NotImplementedError (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ from accunet_tpu_torch.nn.unetr import (
 )
 from accunet_tpu_torch.ops.conv import conv1x1
 
-_TODO = "not ported yet (ROADMAP Queue 1 item 9)"
+_TODO = "not ported yet (ROADMAP Queue 1 item 6)"
 
 
 def _conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:

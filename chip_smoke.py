@@ -8,7 +8,8 @@ From the root of a checkout, with one CUDA device:
   2. builds the hand-written kernels from accunet_tpu_torch/csrc (timed);
   3. holds each kernel against its plain PyTorch version at the shapes of
      ACC-UNet's main path (n_filts=32, 224x224, batch 8), in fp32 (TF32 off)
-     and in bf16;
+     and in bf16 (the wgrad kernel's dw and db, and its second call bitwise
+     equal to its first);
   4. runs ACC_UNet through the eval entry point (accunet_tpu_torch.cli.eval)
      on a synthetic ISIC-style npy folder, with seeded random weights, and
      checks that every kernel launched there;
@@ -30,8 +31,8 @@ From the root of a checkout, with one CUDA device:
      step, and each kernel against its plain version and, for the wgrad, the
      one PyTorch call that computes the same function (CUDA events, warm-up
      excluded), beside the least time the card could take for it (for
-     hanc_mix also the least time of its own path: 3xTF32 on the tensor
-     cores in fp32);
+     hanc_mix and hanc_block also the least time of their own path: 3xTF32
+     on the tensor cores in fp32);
  10. holds the scan kernels (linear_scan forward and reverse, the staged
      dma_chunked_scan) against their plain versions at the four stage shapes
      of Segmamba b8 224x224, and the staged kernel bitwise against
@@ -89,11 +90,12 @@ B, HW, NF = 8, 224, 32  # the main path: ACC_UNet, n_filts=32, 224x224, batch 8
 # the hybrid slice: ACC_UNet_W, 3 classes, 512x512, batch 2 (BASELINE config 4)
 W_B, W_HW, W_CLASSES = 2, 512, 3
 FP32_TOL = 1e-4  # max |kernel - plain| / max |plain| in fp32 (sums reassociate)
-# bf16: both sides compute in fp32 from the same bf16 inputs and round once
-# (a value on a rounding boundary may land one bf16 ulp, 2^-8 relative,
-# apart); hanc_mix also rounds w and its pools to bf16 before the product, as
-# JAX's kernel does, where the plain version keeps them in fp32. The measured
-# bf16 errors are printed in phase 3 and in the kernels line.
+# bf16: both sides compute in fp32 from the same bf16 inputs and round at the
+# same points (a value on a rounding boundary may land one bf16 ulp, 2^-8
+# relative, apart, and later products carry it); hanc_mix also rounds w and
+# its pools to bf16 before the product, as JAX's kernel does, where the plain
+# version keeps them in fp32. The measured bf16 errors are printed in phase 3
+# and in the kernels line.
 BF16_TOL = 1e-2
 # whole model, GPU (kernels) vs CPU (plain versions), fp32: relative error of
 # the logits and of the block outputs, absolute error of the probabilities
@@ -145,8 +147,8 @@ class Case(NamedTuple):
     over `args`; `flops` counts the operations the function needs. `own_path`
     (operations per multiply-add pair counted in `flops`, peak operations per
     second) prices the kernel's own arithmetic where it differs from the input
-    type's peak: hanc_mix in fp32 does each product three times on the tensor
-    cores (3xTF32)."""
+    type's peak: hanc_mix and hanc_block in fp32 do each product three times
+    on the tensor cores (3xTF32)."""
     kernel: str
     name: str
     run: Callable
@@ -217,9 +219,13 @@ def kernel_cases(dev):
 
     def cases(dt):
         out = []
-        # HANCBlock bodies: cnv12, cnv22 (chained: cnv21's SE in the prologue), cnv91
+        # own path: 3xTF32 on the tensor cores in fp32, bf16 mma in bf16
+        own = (3, TF32_FLOPS_PER_S) if dt == torch.float32 else (1, PEAK_FLOPS_PER_S[dt])
+        # HANCBlock bodies: cnv12, cnv22 (chained: cnv21's SE in the prologue),
+        # cnv81 (the widest, cin 128), cnv91
         for name, hw, cin, e, cout, chained in [("cnv12", HW, NF, 3 * NF, NF, False),
                                                 ("cnv22", HW // 2, 2 * NF, 6 * NF, 2 * NF, True),
+                                                ("cnv81", HW // 2, 4 * NF, 12 * NF, 2 * NF, False),
                                                 ("cnv91", HW, 2 * NF, 6 * NF, NF, False)]:
             x, p = rn(B, hw, hw, cin).to(dt), block(cin, e, cout)
             pre = torch.stack([0.5 + rn(B, cin, s=0.1), rn(B, cin, s=0.1)], 1).contiguous() \
@@ -229,7 +235,7 @@ def kernel_cases(dev):
             out.append(Case("hanc_block", name,
                             lambda x=x, p=p, pre=pre: HB.hanc_block(x, p, 3, pre),
                             lambda x=x, p=p, pre=pre: HB.hanc_block_reference(x, p, 3, pre),
-                            (x, tuple(p), pre), flops))
+                            (x, tuple(p), pre), flops, own_path=own))
         # ResPath levels: rspth1 level 0 and a later level, rspth2 a later level
         for name, hw, c, prev in [("rspth1.level0", HW, NF, False), ("rspth1.level1", HW, NF, True),
                                   ("rspth2.level1", HW // 2, 2 * NF, True)]:
@@ -248,18 +254,19 @@ def kernel_cases(dev):
                                      ("cnv72", HW // 4, 136 * NF, 4 * NF, 3)]:
             args = [rn(B, hw, hw, c).to(dt), rn(c, 2 * k - 1, cout, s=1 / c ** 0.5),
                     rn(cout, s=0.1), k]
-            own = (3, TF32_FLOPS_PER_S) if dt == torch.float32 else (1, PEAK_FLOPS_PER_S[dt])
             out.append(Case("hanc_mix", name, lambda a=args: HM.hanc_mix(*a),
                             lambda a=args: HM.hanc_mix_reference(*a),
                             tuple(args[:3]), mix_flops(B * hw * hw, c, cout, k), own_path=own))
-        # depthwise weight gradients of the train step: cnv12 (E=96), cnv52
-        # and cnv61 (E=1536), cnv72 (E=4352)
+        # depthwise weight (and bias) gradients of the train step: cnv12
+        # (E=96), cnv52 and cnv61 (E=1536), cnv72 (E=4352)
         for name, hw, c in [("cnv12", HW, 3 * NF), ("cnv52", HW // 16, 48 * NF),
                             ("cnv61", HW // 8, 48 * NF), ("cnv72", HW // 4, 136 * NF)]:
             args = (rn(B, hw, hw, c).to(dt), rn(B, hw, hw, c).to(dt))
-            out.append(Case("dwconv2d_wgrad", name, lambda a=args: DW.dwconv2d_wgrad(*a, 3, 3),
-                            lambda a=args: DW.dwconv2d_wgrad_reference(*a, 3, 3),
-                            args, 2 * 9 * B * hw * hw * c,
+            out.append(Case("dwconv2d_wgrad", name,
+                            lambda a=args: DW.dwconv2d_wgrad(*a, 3, 3, bias_grad=True),
+                            lambda a=args: (DW.dwconv2d_wgrad_reference(*a, 3, 3),
+                                            a[1].float().sum(dim=(0, 1, 2))),
+                            args, 2 * 9 * B * hw * hw * c + B * hw * hw * c,
                             lambda a=args: wgrad_library(*a, 3)))
         return out
 
@@ -268,7 +275,8 @@ def kernel_cases(dev):
 
 def check_kernels(cases, worst_bf16=None):
     """Phase 3. Returns {kernel: max abs error in fp32} and adds the bf16
-    ones to `worst_bf16`; raises after reporting every disagreement."""
+    ones to `worst_bf16`; raises after reporting every disagreement. The
+    wgrad kernel must also give the same bits on a second call."""
     worst, bad = {}, []
     worst_bf16 = {} if worst_bf16 is None else worst_bf16
     for dt, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
@@ -279,6 +287,9 @@ def check_kernels(cases, worst_bf16=None):
             torch.cuda.synchronize()
             got = got if isinstance(got, tuple) else (got,)
             want = want if isinstance(want, tuple) else (want,)
+            same = True
+            if kname == "dwconv2d_wgrad":
+                same = all(torch.equal(p, q) for p, q in zip(got, kern()))
             errs = []
             for i, (g_, w_) in enumerate(zip(got, want)):
                 if kname in ("hanc_block", "respath_level") and i == len(got) - 1:
@@ -286,9 +297,10 @@ def check_kernels(cases, worst_bf16=None):
                 errs.append(rel_err(g_, w_))
             abs_err = max(e[0] for e in errs)
             rel = max(e[1] for e in errs)
-            ok = rel <= tol
+            ok = rel <= tol and same
             log(f"  {'ok ' if ok else 'BAD'} {kname:13s} {cname:14s} {str(dt)[6:]:8s} "
-                f"max_abs_err {abs_err:.3e}  rel {rel:.3e}  (tol {tol:g})")
+                f"max_abs_err {abs_err:.3e}  rel {rel:.3e}  (tol {tol:g})"
+                + ("" if kname != "dwconv2d_wgrad" else f"; dw, db; 2nd call bitwise {same}"))
             into = worst if dt == torch.float32 else worst_bf16
             into[kname] = max(into.get(kname, 0.0), abs_err)
             if not ok:
@@ -1246,6 +1258,10 @@ def main() -> int:
     times.update(time_kernels(ed_cases))
     log("  " + json.dumps({"card": card, "acc_unet_w_mc_512_b2": w_rates, "w_checks": w_cmp}))
 
+    # the shapes whose times the kernels line lists per kernel
+    by_shape = {"hanc_block": ("cnv12", "cnv22", "cnv81", "cnv91"),
+                "hanc_mix": ("cnv11", "cnv31", "cnv61", "cnv72"),
+                "dwconv2d_wgrad": ("cnv12", "cnv52", "cnv61", "cnv72")}
     timed_case = {"hanc_block": "cnv91", "respath_level": "rspth1.level1", "hanc_mix": "cnv72",
                   "dwconv2d_wgrad": "cnv72", "linear_scan": "stage0",
                   "linear_scan_staged": "stage0", "expand_dw": "cnv72.w_b2_512"}
@@ -1293,11 +1309,11 @@ def main() -> int:
                         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                         "shape": f"{timed_case[name]} fp32"
                                  + ("" if name == "expand_dw" else f" b{B}")})
-        if name == "hanc_mix":  # the bound of its own path: 3xTF32 in fp32, bf16 mma
+        if name in ("hanc_mix", "hanc_block"):  # own path: 3xTF32 in fp32, bf16 mma
             kernels[-1]["own_bound_ms"] = t["own_bound_ms"]
             kernels[-1]["own_bound_by"] = t["own_bound_by"]
-            kernels[-1]["by_shape"] = {f"{c} {d}": times[("hanc_mix", c, d)]
-                                       for c in ("cnv11", "cnv31", "cnv61", "cnv72")
+        if name in by_shape:
+            kernels[-1]["by_shape"] = {f"{c} {d}": times[(name, c, d)] for c in by_shape[name]
                                        for d in ("float32", "bfloat16")}
         if name == "expand_dw":
             kernels[-1]["unfused_ms"] = t["unfused_ms"]

@@ -102,46 +102,88 @@ def test_respath_level_kernel(dev, dt, b, h, w, c, prev):
     _close(got[2].sum(dim=1), want[2].sum(dim=1), max(tol, 1e-4))
 
 
-@pytest.mark.parametrize("dt", sorted(DTYPES))
-@pytest.mark.parametrize("b,h,w,cin,inv,cout,k,pre", [
-    (1, 8, 8, 8, 3, 8, 3, False), (2, 16, 12, 8, 3, 12, 3, True),
-    (1, 12, 20, 40, 2, 24, 2, True), (1, 10, 9, 16, 3, 8, 1, False),
-    (1, 8, 8, 72, 1, 8, 3, True), (1, 16, 16, 128, 3, 64, 3, True),
-])
-def test_hanc_block_kernel(dev, dt, b, h, w, cin, inv, cout, k, pre):
-    dtype, tol = DTYPES[dt]
-    g = torch.Generator(device=dev).manual_seed(2)
+def _block(g, dev, cin, inv, cout, k):
     e = cin * inv
     bns = {n: (1 + _rn(g, dev, d, s=0.1), _rn(g, dev, d, s=0.1))
            for n, d in [("norm1", e), ("norm2", e), ("hnc", cin), ("norm", cin), ("norm3", cout)]}
-    p = HB.fold(_rn(g, dev, cin, e, s=cin ** -0.5), _rn(g, dev, e, s=0.1),
-                _rn(g, dev, 3, 3, e, s=1 / 3), _rn(g, dev, e, s=0.1),
-                _rn(g, dev, e, 2 * k - 1, cin, s=e ** -0.5), _rn(g, dev, cin, s=0.1),
-                _rn(g, dev, cin, cout, s=cin ** -0.5), _rn(g, dev, cout, s=0.1), bns)
+    return HB.fold(_rn(g, dev, cin, e, s=cin ** -0.5), _rn(g, dev, e, s=0.1),
+                   _rn(g, dev, 3, 3, e, s=1 / 3), _rn(g, dev, e, s=0.1),
+                   _rn(g, dev, e, 2 * k - 1, cin, s=e ** -0.5), _rn(g, dev, cin, s=0.1),
+                   _rn(g, dev, cin, cout, s=cin ** -0.5), _rn(g, dev, cout, s=0.1), bns)
+
+
+def _check_block(dev, dt, b, h, w, cin, inv, cout, k, pre, tile=0, seed=2):
+    dtype, tol = DTYPES[dt]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p = _block(g, dev, cin, inv, cout, k)
     x = _rn(g, dev, b, h, w, cin).to(dtype)
-    pr = torch.stack([1 + _rn(g, dev, b, cin, s=0.2), _rn(g, dev, b, cin, s=0.1)], 1) if pre else None
-    y, sums = HB.hanc_block(x, p, k, pr)
+    pr = (torch.stack([1 + _rn(g, dev, b, cin, s=0.2), _rn(g, dev, b, cin, s=0.1)], 1)
+          if pre else None)
+    before = HB.hanc_block.launches
+    y, sums = HB.hanc_block(x, p, k, pr, tile=tile)
     torch.cuda.synchronize()
+    assert HB.hanc_block.launches == before + 1
     ry, rsums = HB.hanc_block_reference(x, p, k, pr)
     _close(y, ry, tol)
     _close(sums.sum(dim=1), rsums.sum(dim=1), max(tol, 1e-4))
 
 
 @pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("b,h,w,cin,inv,cout,k,pre", [
+    (1, 8, 8, 8, 3, 8, 3, False), (2, 16, 12, 8, 3, 12, 3, True),
+    (1, 12, 20, 40, 2, 24, 2, True), (1, 10, 9, 16, 3, 8, 1, False),
+    (1, 8, 8, 72, 1, 8, 3, True), (1, 16, 16, 128, 3, 64, 3, True),
+    # cnv81's widths on a ragged map; cin not a multiple of the 16-byte
+    # copies (element copies); cout wider than 64
+    (2, 28, 20, 128, 3, 64, 3, False), (1, 12, 36, 37, 3, 70, 3, True),
+    (1, 20, 24, 64, 3, 128, 3, False),
+])
+def test_hanc_block_kernel(dev, dt, b, h, w, cin, inv, cout, k, pre):
+    _check_block(dev, dt, b, h, w, cin, inv, cout, k, pre)
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("tile", sorted(HB.TILES))
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_hanc_block_every_tile(dev, dt, tile, k):
+    """Each of the kernel's tiles, forced, at the widest nf it holds, on a
+    ragged map, chained."""
+    cin = HB.TILES[tile][2]
+    _check_block(dev, dt, 2, 20, 36, cin, 3, 24, k, True, tile=tile, seed=5)
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
 @pytest.mark.parametrize("b,h,w,c,k", [
     (1, 5, 7, 9, 3), (2, 12, 9, 40, 3), (1, 9, 20, 33, 7), (3, 4, 4, 64, 5), (2, 30, 17, 96, 3),
+    # cnv72's width; a map narrower than a column segment; a map wider than
+    # one (two segments) with element copies (C = 9, cnv11) and k = 5
+    (1, 6, 10, 4352, 3), (2, 11, 3, 96, 7), (1, 13, 150, 9, 5), (2, 7, 70, 33, 3),
 ])
 def test_dwconv2d_wgrad_kernel(dev, dt, b, h, w, c, k):
     dtype, tol = DTYPES[dt]
     g = torch.Generator(device=dev).manual_seed(3)
     x, gy = _rn(g, dev, b, h, w, c).to(dtype), _rn(g, dev, b, h, w, c).to(dtype)
     before = DW.dwconv2d_wgrad.launches
-    dw = DW.dwconv2d_wgrad(x, gy, k, k)
+    dw, db = DW.dwconv2d_wgrad(x, gy, k, k, bias_grad=True)
     torch.cuda.synchronize()
     assert DW.dwconv2d_wgrad.launches == before + 1
-    assert dw.dtype == torch.float32
+    assert dw.dtype == db.dtype == torch.float32
     # both sides sum the same fp32 products in another order
     _close(dw, DW.dwconv2d_wgrad_reference(x, gy, k, k), 1e-5)
+    _close(db, gy.float().sum(dim=(0, 1, 2)), 1e-5)
+
+
+@pytest.mark.parametrize("b,h,w,c", [(8, 56, 56, 4352), (8, 224, 224, 96), (8, 14, 14, 1536),
+                                     (2, 9, 30, 9)])
+def test_dwconv2d_wgrad_is_deterministic(dev, b, h, w, c):
+    """The partials of a channel block's CTAs are summed in a fixed order:
+    two calls on the same inputs give the same bits (cnv72, cnv12, cnv52 on
+    the direct path, and an element-copy shape)."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    x, gy = _rn(g, dev, b, h, w, c), _rn(g, dev, b, h, w, c)
+    first = DW.dwconv2d_wgrad(x, gy, 3, 3, bias_grad=True)
+    second = DW.dwconv2d_wgrad(x, gy, 3, 3, bias_grad=True)
+    assert all(torch.equal(p, q) for p, q in zip(first, second))
 
 
 def test_autograd_functions_on_the_card(dev):

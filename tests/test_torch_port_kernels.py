@@ -21,6 +21,8 @@ from accunet_tpu.ops import s2d
 from accunet_tpu.ops.pallas.hanc import _xla_hanc_mix
 from accunet_tpu.ops.pallas.hanc_block import hanc_block_frame
 from accunet_tpu.ops.pallas.respath import respath_level_frame
+from accunet_tpu_torch.ops.kernels import _build
+from accunet_tpu_torch.ops.kernels import hanc_block as HB
 from accunet_tpu_torch.ops.kernels.hanc_block import fold, hanc_block
 from accunet_tpu_torch.ops.kernels.hanc_mix import hanc_mix
 from accunet_tpu_torch.ops.kernels.respath import respath_level
@@ -150,3 +152,53 @@ def test_cuda_wrappers_refuse_non_cuda_tensors():
     w = torch.zeros((4, 3, 4), device="meta")
     with pytest.raises(ValueError, match="CUDA tensor"):
         hanc_mix(x, w, torch.zeros(4, device="meta"), 2)
+
+
+@pytest.mark.parametrize("chained", [False, True])
+def test_hanc_block_bf16_matches_tpu_kernel(chained):
+    """bf16: the plain version's rounding points (the kernel's) against
+    JAX's kernel, which keeps the interior in bf16 and rounds at every
+    operation. Tolerance 1e-2 of the output's scale, the port's bf16 bar
+    (a bf16 rounding is 2^-8 relative, and the two sides round at different
+    places along the block)."""
+    cin, k = 8, 3
+    rs = np.random.RandomState(3)
+    x = np.asarray(jnp.asarray(_rand(rs, (2, 16, 16, cin))).astype(jnp.bfloat16)
+                   .astype(jnp.float32))
+    pre = np.stack([1.0 + _rand(rs, (2, cin), 0.2), _rand(rs, (2, cin), 0.1)], axis=1) \
+        if chained else None
+    args, bns = _block_args(k, cin, 3, 12, seed=9)
+    a = {n: jnp.asarray(v) for n, v in args.items()}
+    order = [a[n] for n in ("w1", "b1", "wd", "bd", "wh", "bh", "w3", "b3")]
+    jb = {n: (jnp.asarray(s), jnp.asarray(t)) for n, (s, t) in bns.items()}
+    xf = s2d.pack(jnp.asarray(x).astype(jnp.bfloat16))
+    if pre is None:
+        y, sums = hanc_block_frame(xf, *order, jb, k, interpret=True, emit_sums=True)
+    else:
+        parts = tuple(xf[..., p * cin:(p + 1) * cin] for p in range(4))
+        y, sums = hanc_block_frame(None, *order, jb, k, interpret=True, emit_sums=True,
+                                   x_parts=parts, pre=jnp.asarray(pre))
+    want_y = np.asarray(s2d.unpack(y).astype(jnp.float32))
+    want_s = np.asarray(sums).sum(axis=(1, 2))
+    p = fold(*(_t(args[n]) for n in ("w1", "b1", "wd", "bd", "wh", "bh", "w3", "b3")),
+             {n: (_t(s), _t(t)) for n, (s, t) in bns.items()})
+    got_y, got_s = hanc_block(_t(x).to(torch.bfloat16), p, k, None if pre is None else _t(pre))
+    assert got_y.dtype == torch.bfloat16
+    np.testing.assert_allclose(got_y.float().numpy(), want_y, rtol=0,
+                               atol=1e-2 * np.abs(want_y).max())
+    np.testing.assert_allclose(got_s.sum(dim=1).numpy(), want_s, rtol=0,
+                               atol=1e-2 * np.abs(want_s).max())
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_hanc_block_tile_fits_shared_memory(itemsize):
+    """The tile the wrapper picks for every nf == cin <= 128 (and every tile
+    that holds cin) fits the CTA's shared memory at k = 1..3 and cout up to
+    128, in fp32 and bf16; the mix columns hold nf."""
+    for cin in range(1, HB.MAX_CIN + 1):
+        tile = HB.pick_tile(cin)
+        assert HB.TILES[tile][2] >= cin
+        for t in [tile] + [t for t, (_, _, ncol) in HB.TILES.items() if ncol >= cin]:
+            for k in (1, 2, 3):
+                for cout in (1, 32, 64, 128):
+                    assert HB.smem_bytes(t, cin, cout, k, itemsize)[0] <= _build.MAX_SMEM

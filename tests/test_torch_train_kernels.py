@@ -24,6 +24,7 @@ from accunet_tpu.ops.pallas.dwconv2d import _dwconv2d_wgrad_pallas, dwconv2d
 from accunet_tpu.ops.pallas.hanc import hanc_mix as jax_hanc_mix
 from accunet_tpu_torch.models import ACC_UNet, init_parameters
 from accunet_tpu_torch.nn import acc_blocks as T
+from accunet_tpu_torch.ops.kernels import _build
 from accunet_tpu_torch.ops.kernels import dwconv2d as DW
 from accunet_tpu_torch.ops.kernels.hanc_mix import HancMixFn
 from accunet_tpu_torch.port import state_dict_from_jax
@@ -151,14 +152,25 @@ def test_remat_step_matches_the_plain_step():
 
 
 def test_wgrad_partial_buffer_is_bounded():
-    """The kernel's partial sums take (ranges, kh*kw, C) floats; the number of
-    row ranges falls as C grows, so the buffer stays near 8 CTAs/SM x 32
-    channels x taps whatever B*H*W is."""
-    for rows, c in [(8 * 224, 96), (64 * 224, 96), (8 * 56, 4352), (10 ** 6, 9), (5, 3)]:
-        ranges, per = DW.row_split(rows, c)
-        assert ranges * per >= rows > (ranges - 1) * per
-        assert ranges <= -(-rows // 8)
-        assert ranges * c <= (DW._TARGET_CTAS + 1) * 32 + c
+    """The kernel's partial sums take (ctas, k*k + 1, C) floats; the CTAs per
+    channel block fall as C grows, so the grid stays within a few waves of 2
+    CTAs/SM x 132 SMs and the buffer near that many channel blocks whatever
+    B*H*W is. Every CTA gets at least one (image, segment, row) unit, a
+    channel block holds whole 16-byte copies, a segment has a thread per
+    column, and the ring of stages fits in shared memory."""
+    for b, h, w, c, k, itemsize, vec in [
+            (8, 224, 224, 96, 3, 4, True), (64, 224, 224, 96, 3, 4, True),
+            (8, 56, 56, 4352, 3, 4, True), (8, 224, 224, 9, 3, 4, False),
+            (8, 14, 14, 1536, 3, 2, True), (1, 5, 3, 3, 7, 2, False),
+            (2, 9, 300, 40, 5, 4, True), (3, 4, 4, 64, 7, 2, True)]:
+        plan = DW.wgrad_plan(b, h, w, c, k, itemsize, vec)
+        assert 1 <= plan.ctas <= plan.units
+        assert plan.blocks * plan.cb >= c > (plan.blocks - 1) * plan.cb
+        assert plan.cb % (16 // itemsize if vec else 1) == 0
+        assert plan.ctas * plan.blocks <= max(5 * DW._CTAS_PER_SM * DW._SMS, plan.blocks)
+        lanes = DW._THREADS // (plan.cb // ((4 if k == 3 else 2 if k == 5 else 1) if vec else 1))
+        assert plan.sw <= lanes and plan.sw * -(-w // plan.sw) >= w
+        assert plan.smem <= _build.MAX_SMEM
 
 
 def test_wgrad_wrapper_refuses_what_the_kernel_does_not_take():

@@ -1,0 +1,292 @@
+#!/usr/bin/env python3
+"""Time dwconv2d_wgrad and hanc_block, and the models that run them, for one
+tree of the port.
+
+    python tools/kernel_ab.py [--tag NAME] [--json PATH] [--iters N] [--only KERNEL]
+                              [--sweep] [--graphs] [--models] [--contig]
+
+On one CUDA card, at chip_smoke.py's shapes (ACC_UNet, n_filts=32, b8
+224x224), in fp32 (TF32 off) and bf16:
+  * dwconv2d_wgrad at cnv12, cnv52, cnv61 and cnv72: the kernel for dw alone
+    and, where the tree's wrapper takes `bias_grad`, for dw and db; cuDNN's
+    weight-only `aten.convolution_backward` on the same inputs; the error of
+    dw against the plain version (max abs error / max |plain|);
+  * hanc_block at cnv12, cnv22 (chained `pre`), cnv81 and cnv91: the kernel
+    and its error against the plain version;
+  * with --sweep (this tree only): dwconv2d_wgrad at each of its shapes
+    under other splits (channel block, CTAs per block: `wgrad_plan`'s
+    overrides) and hanc_block at each of its shapes in every tile that holds
+    its width (`TILES`);
+  * with --models: ACC_UNet b8 224x224 and ACC_UNet_W (3 classes) b2 512x512
+    forwards in fp32 and bf16, and the ACC_UNet b8 224x224 fp32 train step;
+  * with --contig: for one ACC_UNet b8 224x224 train step, whether each
+    depthwise backward met an NHWC-contiguous x and g (if not, its
+    `.contiguous()` copied the map).
+Times are CUDA events over --iters calls after 3 warm-up; with --graphs the
+kernel calls (not the models) replay from a CUDA graph, so that a call's
+host time does not show between short kernels. Prints one line
+per row and, with --json, writes the rows. Run it once per tree with that
+tree's root first on PYTHONPATH (e.g. a `git archive` of an older commit
+unpacked into an ignored directory), in turns (old, new, new, old), to put
+two designs side by side in one chip call.
+"""
+
+from __future__ import annotations
+
+import argparse
+import inspect
+import itertools
+import json
+import os
+import subprocess
+import sys
+
+import torch
+
+B, HW, NF = 8, 224, 32
+# name, map side, C
+WGRAD = [("cnv12", HW, 3 * NF), ("cnv52", HW // 16, 48 * NF), ("cnv61", HW // 8, 48 * NF),
+         ("cnv72", HW // 4, 136 * NF)]
+# name, map side, cin, E, cout, chained
+BLOCKS = [("cnv12", HW, NF, 3 * NF, NF, False), ("cnv22", HW // 2, 2 * NF, 6 * NF, 2 * NF, True),
+          ("cnv81", HW // 2, 4 * NF, 12 * NF, 2 * NF, False),
+          ("cnv91", HW, 2 * NF, 6 * NF, NF, False)]
+
+
+GRAPHS = False  # --graphs: replay the calls from a CUDA graph (no host time between them)
+
+
+def time_ms(fn, iters: int) -> float:
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    run = fn
+    if GRAPHS:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        run = graph.replay
+        run()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        run()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def rel_err(got, want) -> float:
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def wgrad_library(x, g, k=3):
+    c = x.shape[-1]
+    w = torch.empty(c, 1, k, k, device=x.device, dtype=x.dtype)
+    return torch.ops.aten.convolution_backward(
+        g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w, None, [1, 1], [(k - 1) // 2] * 2,
+        [1, 1], False, [0, 0], c, [False, True, False])[1]
+
+
+def kernel_rows(iters: int, emit, only=None):
+    from accunet_tpu_torch.ops.kernels import dwconv2d as DW
+    from accunet_tpu_torch.ops.kernels import hanc_block as HB
+
+    takes_db = "bias_grad" in inspect.signature(DW.dwconv2d_wgrad).parameters
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def rn(*shape, s=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * s
+
+    for dt in (torch.float32, torch.bfloat16):
+        for name, hw, c in WGRAD if only in (None, "dwconv2d_wgrad") else ():
+            x, gy = rn(B, hw, hw, c).to(dt), rn(B, hw, hw, c).to(dt)
+            with torch.inference_mode():
+                err = rel_err(DW.dwconv2d_wgrad(x, gy, 3, 3),
+                              DW.dwconv2d_wgrad_reference(x, gy, 3, 3))
+                row = {"kernel": "dwconv2d_wgrad", "shape": name, "dtype": str(dt)[6:],
+                       "ms": time_ms(lambda: DW.dwconv2d_wgrad(x, gy, 3, 3), iters),
+                       "ms_with_db": (time_ms(lambda: DW.dwconv2d_wgrad(x, gy, 3, 3,
+                                                                        bias_grad=True), iters)
+                                      if takes_db else None),
+                       "library_ms": time_ms(lambda: wgrad_library(x, gy), iters), "rel_err": err}
+            emit(row)
+            del x, gy
+        for name, hw, cin, e, cout, chained in BLOCKS if only in (None, "hanc_block") else ():
+            f = lambda n: 1.0 / n ** 0.5  # noqa: E731
+            bns = {n: (1 + rn(d, s=0.1), rn(d, s=0.1)) for n, d in
+                   [("norm1", e), ("norm2", e), ("hnc", cin), ("norm", cin), ("norm3", cout)]}
+            p = HB.fold(rn(cin, e, s=f(cin)), rn(e, s=0.1), rn(3, 3, e, s=f(9)), rn(e, s=0.1),
+                        rn(e, 5, cin, s=f(e)), rn(cin, s=0.1), rn(cin, cout, s=f(cin)),
+                        rn(cout, s=0.1), bns)
+            x = rn(B, hw, hw, cin).to(dt)
+            pre = torch.stack([0.5 + rn(B, cin, s=0.1), rn(B, cin, s=0.1)], 1).contiguous() \
+                if chained else None
+            with torch.inference_mode():
+                err = rel_err(HB.hanc_block(x, p, 3, pre)[0],
+                              HB.hanc_block_reference(x, p, 3, pre)[0])
+                row = {"kernel": "hanc_block", "shape": name, "dtype": str(dt)[6:],
+                       "ms": time_ms(lambda: HB.hanc_block(x, p, 3, pre), iters), "rel_err": err}
+            emit(row)
+            del x, p, pre
+        torch.cuda.empty_cache()
+
+
+def sweep_rows(iters: int, emit):
+    from accunet_tpu_torch.ops.kernels import dwconv2d as DW
+    from accunet_tpu_torch.ops.kernels import hanc_block as HB
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def rn(*shape, s=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * s
+
+    for dt in (torch.float32, torch.bfloat16):
+        size = torch.finfo(dt).bits // 8
+        for name, hw, c in WGRAD:
+            x, gy = rn(B, hw, hw, c).to(dt), rn(B, hw, hw, c).to(dt)
+            base = DW.wgrad_plan(B, hw, hw, c, 3, size, True)
+            whole = -(-c // (16 // size)) * (16 // size)  # every channel in one block
+            cbs = {base.cb * m for m in (1, 2, 4, 8)} | ({whole} if c <= 256 else set())
+            for cb in sorted(cbs):
+                for mult, direct in itertools.product((1, 2, 4, 8), (False, True)):
+                    try:
+                        one = DW.wgrad_plan(B, hw, hw, c, 3, size, True, cb=cb)
+                        plan = DW.wgrad_plan(B, hw, hw, c, 3, size, True, cb=cb,
+                                             ctas=one.ctas * mult, direct=direct)
+                    except ValueError:
+                        continue
+                    with torch.inference_mode():
+                        ms = time_ms(lambda: DW.dwconv2d_wgrad(x, gy, 3, 3, plan=plan), iters)
+                    emit({"kernel": "dwconv2d_wgrad", "shape": f"{name} cb{cb} sw{plan.sw} "
+                          f"ctas{plan.ctas}{' direct' if direct else ''}",
+                          "dtype": str(dt)[6:], "ms": ms})
+            del x, gy
+        for name, hw, cin, e, cout, chained in BLOCKS:
+            p = HB.fold(rn(cin, e, s=cin ** -0.5), rn(e, s=0.1), rn(3, 3, e, s=1 / 3),
+                        rn(e, s=0.1), rn(e, 5, cin, s=e ** -0.5), rn(cin, s=0.1),
+                        rn(cin, cout, s=cin ** -0.5), rn(cout, s=0.1),
+                        {n: (1 + rn(d, s=0.1), rn(d, s=0.1)) for n, d in
+                         [("norm1", e), ("norm2", e), ("hnc", cin), ("norm", cin),
+                          ("norm3", cout)]})
+            x = rn(B, hw, hw, cin).to(dt)
+            for tile, (th, tw, ncol) in HB.TILES.items():
+                if ncol < cin:
+                    continue
+                with torch.inference_mode():
+                    ms = time_ms(lambda: HB.hanc_block(x, p, 3, tile=tile), iters)
+                emit({"kernel": "hanc_block", "shape": f"{name} tile{tile} {th}x{tw}x{ncol}",
+                      "dtype": str(dt)[6:], "ms": ms})
+            del x, p
+        torch.cuda.empty_cache()
+
+
+def model_rows(iters: int, emit):
+    from accunet_tpu_torch.models import build, init_parameters
+    from accunet_tpu_torch.train.engine import make_train_fns
+
+    for name, n_classes, hw, b in (("ACC_UNet", 1, HW, B), ("ACC_UNet_W", 3, 512, 2)):
+        x = torch.randn(b, hw, hw, 3, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(1))
+        for dt in (torch.float32, torch.bfloat16):
+            m = init_parameters(build(name, n_channels=3, n_classes=n_classes, n_filts=NF,
+                                      final_sigmoid=False), torch.Generator().manual_seed(0))
+            m, xd = m.eval().to(device="cuda", dtype=dt), x.to(dt)
+            with torch.inference_mode():
+                ms = time_ms(lambda: m(xd), iters)
+            emit({"kernel": "model", "shape": f"{name} b{b} {hw}x{hw} forward",
+                  "dtype": str(dt)[6:], "ms": ms})
+            del m, xd
+        torch.cuda.empty_cache()
+    model = init_parameters(build("ACC_UNet", n_channels=3, n_classes=1, n_filts=NF),
+                            torch.Generator().manual_seed(0)).cuda()
+    fns = make_train_fns(model)
+    g = torch.Generator("cuda").manual_seed(6)
+    batch = {"image": torch.rand(B, HW, HW, 3, generator=g, device="cuda"),
+             "mask": (torch.rand(B, HW, HW, 1, generator=g, device="cuda") > 0.5).float()}
+    emit({"kernel": "model", "shape": f"ACC_UNet b{B} {HW}x{HW} train step", "dtype": "float32",
+          "ms": time_ms(lambda: fns.train_step(fns.state, batch), iters)})
+
+
+def contig_rows(emit):
+    from accunet_tpu_torch.models import build, init_parameters
+    from accunet_tpu_torch.ops.kernels import dwconv2d as DW
+    from accunet_tpu_torch.train.engine import make_train_fns
+
+    seen = []
+    backward = DW.DepthwiseConv2dFn.backward
+
+    def recording(ctx, g):
+        x = ctx.saved_tensors[0]
+        seen.append((tuple(x.shape), x.is_contiguous(), g.is_contiguous()))
+        return backward(ctx, g)
+
+    DW.DepthwiseConv2dFn.backward = staticmethod(recording)
+    try:
+        model = init_parameters(build("ACC_UNet", n_channels=3, n_classes=1, n_filts=NF),
+                                torch.Generator().manual_seed(0)).cuda()
+        fns = make_train_fns(model)
+        g = torch.Generator("cuda").manual_seed(6)
+        batch = {"image": torch.rand(B, HW, HW, 3, generator=g, device="cuda"),
+                 "mask": (torch.rand(B, HW, HW, 1, generator=g, device="cuda") > 0.5).float()}
+        fns.train_step(fns.state, batch)
+        torch.cuda.synchronize()
+    finally:
+        DW.DepthwiseConv2dFn.backward = backward
+    emit({"kernel": "contiguity", "shape": f"ACC_UNet b{B} {HW}x{HW} train step",
+          "backwards": len(seen), "x_not_contiguous": sum(not x for _, x, _ in seen),
+          "g_not_contiguous": sum(not g_ for _, _, g_ in seen), "maps": seen})
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tag", default="", help="a name for this tree, copied into every row")
+    ap.add_argument("--json", default=None, help="write the rows here")
+    ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--only", choices=("dwconv2d_wgrad", "hanc_block"), default=None,
+                    help="time this kernel alone")
+    ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--graphs", action="store_true")
+    ap.add_argument("--models", action="store_true")
+    ap.add_argument("--contig", action="store_true")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("kernel_ab: needs a CUDA device", file=sys.stderr)
+        return 2
+    # appended, so that a tree on PYTHONPATH comes first
+    sys.path.append(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import accunet_tpu_torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    tree = os.path.dirname(os.path.dirname(os.path.abspath(accunet_tpu_torch.__file__)))
+    print(f"{card}; tree {tree} ({args.tag})", flush=True)
+    rows = []
+
+    def emit(row):
+        row.update(tag=args.tag, card=card, graphs=GRAPHS)
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+
+    global GRAPHS
+    GRAPHS = args.graphs
+    kernel_rows(args.iters, emit, args.only)
+    if args.sweep:
+        sweep_rows(args.iters, emit)
+    GRAPHS = False
+    if args.models:
+        model_rows(args.iters, emit)
+    if args.contig:
+        contig_rows(emit)
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(rows, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
