@@ -44,14 +44,6 @@
 namespace accunet {
 namespace {
 
-// smallest s >= n with s = 8 (mod m): a row stride whose fragment loads are
-// free of bank conflicts (m = 32 for fp32 pairs, 16 for bf16 words)
-__host__ __device__ constexpr int conflict_free_ld(int n, int m) {
-  return n + ((8 - n % m) % m + m) % m;
-}
-
-__host__ __device__ constexpr int align16(int n) { return (n + 15) / 16 * 16; }
-
 // The shared-memory plan of a CTA, in bytes (mirrored by
 // ops/kernels/hanc_block.py smem_bytes):
 //   [0, xs)  the x halo, HPR rows of xld T (rows >= HP and channels >= cin zero)
@@ -96,29 +88,6 @@ struct HbSmem {
     bytes = end > epilogue ? end : epilogue;
   }
 };
-
-// a rows x COLS block from device memory (row stride gld elements) into
-// shared memory (row stride sld), zero outside rows_ok x cols_ok; 16-byte
-// cp.async copies (vec: cols_ok and the rows' starts are whole 16 bytes) or
-// element copies through a register
-template <typename E, int COLS, int NTH>
-__device__ __forceinline__ void copy_block(E* dst, int sld, const E* src, size_t gld, int rows,
-                                           int rows_ok, int cols_ok, bool vec, int tid) {
-  if (vec) {
-    constexpr int V = 16 / sizeof(E), SEGS = COLS / V;
-    static_assert(COLS % V == 0, "whole 16-byte columns");
-    for (int i = tid; i < rows * SEGS; i += NTH) {
-      const int r = i / SEGS, c = (i - r * SEGS) * V;
-      const bool ok = r < rows_ok && c < cols_ok;
-      cp_async16(dst + r * sld + c, ok ? src + r * gld + c : src, ok);
-    }
-  } else {
-    for (int i = tid; i < rows * COLS; i += NTH) {
-      const int r = i / COLS, c = i - r * COLS;
-      dst[r * sld + c] = r < rows_ok && c < cols_ok ? src[r * gld + c] : from_float<E>(0.f);
-    }
-  }
-}
 
 // The projection's A fragment (m = output channel, k = z channel) straight
 // from w3 (nf, cout) in device memory, zero outside it; the k slots follow
@@ -252,49 +221,13 @@ hanc_block_kernel(const T* __restrict__ x, const float* __restrict__ pre,
     const T* wds = reinterpret_cast<const T*>(wa + sm.wd_off);
     const float* ts = reinterpret_cast<const float*>(wa + sm.t_off);
 
-    // (a) the expand on the halo: u^T = w1^T xin^T, warps over halo n-tiles
-    // (all of a warp's n-tiles at once, two k-steps unrolled, so that the
-    // fragment loads of one k-step overlap the products of the other)
-    {
-      constexpr int NTE = S::HPR / 8, JE = (NTE + kWarps - 1) / kWarps, MTE = KC / 16;
-      float ae[JE][MTE][4] = {};
-#pragma unroll 2
-      for (int kk = 0; kk < sm.cin_pad; kk += O::KSTEP) {
-        typename O::A a[MTE];
-        typename O::B bb[JE];
-#pragma unroll
-        for (int mt = 0; mt < MTE; ++mt) O::load_a(a[mt], w1s, S::W1LD, 16 * mt, kk, lane);
-#pragma unroll
-        for (int jj = 0; jj < JE; ++jj) {
-          const int j = warp + kWarps * jj;
-          if (j < NTE) O::load_b(bb[jj], Xs, sm.xld, 8 * j, kk, lane);
-        }
-        // pass by pass, so that consecutive mma.sync are independent
-#pragma unroll
-        for (int p = 0; p < O::kPasses; ++p)
-#pragma unroll
-          for (int jj = 0; jj < JE; ++jj) {
-            if (warp + kWarps * jj < NTE) {
-#pragma unroll
-              for (int mt = 0; mt < MTE; ++mt) O::pass(p, false, ae[jj][mt], a[mt], bb[jj]);
-            }
-          }
-      }
-#pragma unroll
-      for (int jj = 0; jj < JE; ++jj) {
-        const int j = warp + kWarps * jj;
-        if (j < NTE) {
-#pragma unroll
-          for (int mt = 0; mt < MTE; ++mt)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) {
-              const int e = 16 * mt + g + (c >> 1) * 8, hp = 8 * j + t2x + (c & 1);
-              const float u = lrelu(ae[jj][mt][c] + ts[e]);
-              Us[hp * S::ULD + e] = halo_in(hp) ? round_to<T>(u) : 0.f;
-            }
-        }
-      }
-    }
+    // (a) the expand on the halo (expand_halo in mma.cuh), then t1, lrelu
+    // and the zeroing of out-of-image halo pixels
+    expand_halo<T, S::HPR / 8, KC / 16, false>(
+        w1s, S::W1LD, Xs, sm.xld, sm.cin_pad, warp, lane, [&](int hp, int e, float v) {
+          const float u = lrelu(v + ts[e]);
+          Us[hp * S::ULD + e] = halo_in(hp) ? round_to<T>(u) : 0.f;
+        });
     __syncthreads();  // B1: Us is complete; every thread is done with chunk ch-1's stage
     if (ch + 1 < nchunks) {
       load_wa(ch + 1);

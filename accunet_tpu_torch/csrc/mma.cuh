@@ -99,6 +99,19 @@ __device__ __forceinline__ void ldv(const bf16* p, float (&v)[CW]) {
     v[0] = __bfloat162float(*p);
   }
 }
+// the 16 bytes r as 4 floats or 8 bf16 values
+__device__ __forceinline__ void unpack16(const uint4& r, float (&v)[4]) {
+  v[0] = __uint_as_float(r.x), v[1] = __uint_as_float(r.y);
+  v[2] = __uint_as_float(r.z), v[3] = __uint_as_float(r.w);
+}
+__device__ __forceinline__ void unpack16(const uint4& r, float (&v)[8]) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    v[2 * i] = f.x, v[2 * i + 1] = f.y;
+  }
+}
 template <int CW>
 __device__ __forceinline__ void stv(float* p, const float (&v)[CW]) {
   if constexpr (CW == 4)
@@ -110,7 +123,15 @@ __device__ __forceinline__ void stv(float* p, const float (&v)[CW]) {
 }
 template <int CW>
 __device__ __forceinline__ void stv(bf16* p, const float (&v)[CW]) {
-  if constexpr (CW == 4) {
+  if constexpr (CW == 8) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+      w[i] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else if constexpr (CW == 4) {
     const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
     const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
     *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
@@ -125,6 +146,38 @@ template <typename T>
 __device__ __forceinline__ float round_to(float v) {
   return to_float(from_float<T>(v));
 }
+
+// smallest s >= n with s = 8 (mod m): a row stride whose fragment loads are
+// free of bank conflicts (m = 32 for fp32 pairs, 16 for bf16 words)
+__host__ __device__ constexpr int conflict_free_ld(int n, int m) {
+  return n + ((8 - n % m) % m + m) % m;
+}
+
+__host__ __device__ constexpr int align16(int n) { return (n + 15) / 16 * 16; }
+
+// a rows x COLS block from device memory (row stride gld elements) into
+// shared memory (row stride sld), zero outside rows_ok x cols_ok; 16-byte
+// cp.async copies (vec: cols_ok and the rows' starts are whole 16 bytes) or
+// element copies through a register
+template <typename E, int COLS, int NTH>
+__device__ __forceinline__ void copy_block(E* dst, int sld, const E* src, size_t gld, int rows,
+                                           int rows_ok, int cols_ok, bool vec, int tid) {
+  if (vec) {
+    constexpr int V = 16 / sizeof(E), SEGS = COLS / V;
+    static_assert(COLS % V == 0, "whole 16-byte columns");
+    for (int i = tid; i < rows * SEGS; i += NTH) {
+      const int r = i / SEGS, c = (i - r * SEGS) * V;
+      const bool ok = r < rows_ok && c < cols_ok;
+      cp_async16(dst + r * sld + c, ok ? src + r * gld + c : src, ok);
+    }
+  } else {
+    for (int i = tid; i < rows * COLS; i += NTH) {
+      const int r = i / COLS, c = i - r * COLS;
+      dst[r * sld + c] = r < rows_ok && c < cols_ok ? src[r * gld + c] : from_float<E>(0.f);
+    }
+  }
+}
+
 
 // Per input type: the K-chunk staged per ring stage (KC), the K of one mma
 // (KSTEP), row paddings that keep the fragment loads free of bank conflicts,
@@ -170,6 +223,17 @@ struct Ops<float> {
     split_tf32(v.x, b.hi[0], b.lo[0]);
     split_tf32(v.y, b.hi[1], b.lo[1]);
   }
+  // A (m16 x k8) from a row-major [m][k] matrix (rows row .. row + 15,
+  // stride ld): the same k slots, rows g and g + 8 each one 8-byte load
+  __device__ static void load_a_rows(A& a, const float* Xs, int ld, int row, int kk, int lane) {
+    const float* p = Xs + (row + (lane >> 2)) * ld + kk + 2 * (lane & 3);
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    const float2 u = *reinterpret_cast<const float2*>(p + 8 * ld);
+    split_tf32(v.x, a.hi[0], a.lo[0]);
+    split_tf32(u.x, a.hi[1], a.lo[1]);
+    split_tf32(v.y, a.hi[2], a.lo[2]);
+    split_tf32(u.y, a.hi[3], a.lo[3]);
+  }
   __device__ static void load_b(B& b, const float* Xs, int row, int kk, int lane) {
     load_b(b, Xs, LDX, row, kk, lane);
   }
@@ -208,6 +272,16 @@ struct Ops<bf16> {
     const bf16* p = Xs + (row + (lane >> 2)) * ld + kk + 2 * (lane & 3);
     b.r[0] = *reinterpret_cast<const uint32_t*>(p);
     b.r[1] = *reinterpret_cast<const uint32_t*>(p + 8);
+  }
+  // A (m16 x k16) from a row-major [m][k] matrix (rows row .. row + 15,
+  // stride ld, a multiple of 8) with ldmatrix: matrix q = lane / 8 covers
+  // rows (q % 2) * 8 .. +7 and k columns (q / 2) * 8 .. +7
+  __device__ static void load_a_rows(A& a, const bf16* Xs, int ld, int row, int kk, int lane) {
+    const int q = lane >> 3;
+    const bf16* p = Xs + (row + (q & 1) * 8 + (lane & 7)) * ld + kk + (q >> 1) * 8;
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(a.r[0]), "=r"(a.r[1]), "=r"(a.r[2]), "=r"(a.r[3])
+                 : "r"(smem_u32(p)));
   }
   __device__ static void load_b(B& b, const bf16* Xs, int row, int kk, int lane) {
     load_b(b, Xs, LDX, row, kk, lane);
@@ -295,6 +369,96 @@ __device__ __forceinline__ void mix(float (&acc)[NT][MT][4], const T* Ws, int ld
           for (int c = 0; c < 4; ++c) acc[J0 + j + jb][mt][c] += part[jb][mt][c];
     }
   }
+}
+
+// The expand of a pixel halo on the tensor cores (hanc_block's and
+// expand_dw's first phase): u^T = W^T x^T over MTE m16 tiles of channels (A
+// from the [k][m] slab Ws, row stride ldw) and the NTE 8-row n-tiles of the
+// halo Xs ([row][k], stride xld). Warp w takes n-tiles w, w + kWarps, ...
+// (ExpandAcc<NTE, MTE> holds its sums). expand_acc adds a staged K block of
+// depth kpad (a multiple of the k-step, of 16 with PROMOTE) to them: all the warp's n-tiles at once, two
+// k-steps unrolled, pass by pass across its n-tiles so that consecutive
+// mma.sync are independent. With PROMOTE each 16-deep K-chunk's sum starts
+// from 0 and joins the fp32 sum with an fp32 add (3xTF32; the tensor core
+// truncates its own sums). expand_store calls epi(row, m, value) for each
+// of the warp's elements; expand_halo is the two over one K block.
+template <int NTE, int MTE>
+struct ExpandAcc {
+  static constexpr int JE = (NTE + kWarps - 1) / kWarps;
+  float v[JE][MTE][4];
+};
+
+template <typename T, bool PROMOTE, int NTE, int MTE>
+__device__ __forceinline__ void expand_acc(ExpandAcc<NTE, MTE>& ae, const T* Ws, int ldw,
+                                           const T* Xs, int xld, int kpad, int warp, int lane) {
+  using O = Ops<T>;
+  constexpr int JE = ExpandAcc<NTE, MTE>::JE, PC = PROMOTE ? 16 / O::KSTEP : 1;
+#pragma unroll 2
+  for (int k0 = 0; k0 < kpad; k0 += PC * O::KSTEP) {
+    float part[PROMOTE ? JE : 1][MTE][4];
+#pragma unroll
+    for (int s = 0; s < PC; ++s) {
+      const int kk = k0 + s * O::KSTEP;
+      typename O::A a[MTE];
+      typename O::B bb[JE];
+#pragma unroll
+      for (int mt = 0; mt < MTE; ++mt) O::load_a(a[mt], Ws, ldw, 16 * mt, kk, lane);
+#pragma unroll
+      for (int jj = 0; jj < JE; ++jj) {
+        const int j = warp + kWarps * jj;
+        if (j < NTE) O::load_b(bb[jj], Xs, xld, 8 * j, kk, lane);
+      }
+#pragma unroll
+      for (int p = 0; p < O::kPasses; ++p)
+#pragma unroll
+        for (int jj = 0; jj < JE; ++jj) {
+          if (warp + kWarps * jj < NTE) {
+#pragma unroll
+            for (int mt = 0; mt < MTE; ++mt) {
+              if constexpr (PROMOTE)
+                O::pass(p, s == 0, part[jj][mt], a[mt], bb[jj]);
+              else
+                O::pass(p, false, ae.v[jj][mt], a[mt], bb[jj]);
+            }
+          }
+        }
+    }
+    if constexpr (PROMOTE) {
+#pragma unroll
+      for (int jj = 0; jj < JE; ++jj)
+        if (warp + kWarps * jj < NTE) {
+#pragma unroll
+          for (int mt = 0; mt < MTE; ++mt)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) ae.v[jj][mt][c] += part[jj][mt][c];
+        }
+    }
+  }
+}
+
+template <int NTE, int MTE, class Epi>
+__device__ __forceinline__ void expand_store(const ExpandAcc<NTE, MTE>& ae, int warp, int lane,
+                                             Epi epi) {
+  const int g = lane >> 2, t2 = 2 * (lane & 3);
+#pragma unroll
+  for (int jj = 0; jj < ExpandAcc<NTE, MTE>::JE; ++jj) {
+    const int j = warp + kWarps * jj;
+    if (j < NTE) {
+#pragma unroll
+      for (int mt = 0; mt < MTE; ++mt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          epi(8 * j + t2 + (c & 1), 16 * mt + g + (c >> 1) * 8, ae.v[jj][mt][c]);
+    }
+  }
+}
+
+template <typename T, int NTE, int MTE, bool PROMOTE, class Epi>
+__device__ __forceinline__ void expand_halo(const T* Ws, int ldw, const T* Xs, int xld, int kpad,
+                                            int warp, int lane, Epi epi) {
+  ExpandAcc<NTE, MTE> ae = {};
+  expand_acc<T, PROMOTE>(ae, Ws, ldw, Xs, xld, kpad, warp, lane);
+  expand_store(ae, warp, lane, epi);
 }
 
 }  // namespace

@@ -36,13 +36,13 @@ _I = ctypes.c_int
 # C entry points: name -> argtypes (pointers, then ints, then the stream)
 SIGNATURES = {
     "accunet_hanc_mix": [_P, _P, _P, _P] + [_I] * 8 + [_P],
-    "accunet_respath_level": [_P] * 11 + [_I] * 6 + [_P],
+    "accunet_respath_level": [_P] * 11 + [_I] * 7 + [_P],
     "accunet_hanc_block": [_P] * 14 + [_I] * 10 + [_P],
     "accunet_dwconv2d_wgrad": [_P] * 6 + [_I] * 11 + [_P],
     "accunet_linear_scan": [_P] * 3 + [_I] * 3 + [_P],
     "accunet_linear_scan_reverse": [_P] * 5 + [_I] * 3 + [_P],
     "accunet_linear_scan_staged": [_P] * 3 + [_I] * 5 + [_P],
-    "accunet_expand_dw": [_P] * 5 + [_I] * 6 + [_P],
+    "accunet_expand_dw": [_P] * 5 + [_I] * 7 + [_P],
 }
 
 

@@ -10,16 +10,23 @@ Replaces the TPU kernel `expand_dw_nhwc` (accunet_tpu/ops/pallas/
 expand_dw.py:77, body `_kernel` :29-55, pallas_call :102), which ran a
 (batch, row block) grid with two-block halo staging in VMEM.
 
-Kernel (`csrc/expand_dw.cu`): one CTA per (image, 14x14-pixel tile, 64 of
-the E channels). It expands the tile's 16x16 halo from x and w1 staged in
-shared memory (a register-tiled fp32 product, 8 pixels x 8 channels a
-thread), sets out-of-image halo pixels to 0 AFTER the activation (SAME
-padding pads the activated map), then runs the nine taps per channel and
-stores with consecutive threads on consecutive channels. What bounds it on
-the card: fp32 FMAs on CUDA cores, 2*px*E*(cin+9) flops times the halo
-recompute (1.31x on a 56x56 map, 1.56x on 128x128 with its ragged last
-tiles); device-memory traffic is one read of x and one write of y, against
-several round trips of the E-wide interior for the unfused ops.
+Kernel (`csrc/expand_dw.cu`): hanc_block's front half with y as the
+output. A CTA owns one tile of 8x16 pixels and a group of chunks of E (64
+channels in fp32, 32 in bf16); the tile's halo of x comes in once (cp.async)
+and stays in shared memory while the CTA walks its chunks (`PLANS`; where
+the whole halo does not fit, a second plan stages it 64 channels at a time
+for each chunk). Per chunk the expand
+runs on the halo on the tensor cores (mma.sync: 3xTF32 in fp32, each 16-deep
+K-chunk's sum added in fp32; bf16 in bf16), then BN1 and lrelu, with
+out-of-image halo pixels set to 0 AFTER the activation (SAME padding pads
+the activated map); the nine taps, BN2 and lrelu run on the CUDA cores, a
+3x3 window sliding in registers, and y leaves as 4-channel vectors with
+consecutive threads on consecutive channels. The next chunk's weights come
+by cp.async during the taps. What bounds it on the card: in fp32 the
+expand's 3xTF32 products and the store of the E-wide y, in bf16 the bytes.
+In bf16 w1 and wd are rounded to bf16 (JAX's kernel casts them), the
+expand's product is rounded to bf16 before BN1, u is bf16 and y =
+bf16(lrelu(acc*s2 + t2)); `expand_dw_plain` rounds at the same points.
 """
 
 from __future__ import annotations
@@ -31,17 +38,68 @@ from accunet_tpu_torch.ops.activation import lrelu
 from accunet_tpu_torch.ops.kernels import _build
 
 
+# the kernel's plans: the 8x16 tile's x halo resident for the CTA's life, or
+# staged 64 channels at a time for each chunk of E
+PLANS = {1: "resident", 2: "staged"}
+TILE = (8, 16)
+STAGED_K = 64
+
+
+def chunk(itemsize: int) -> int:
+    """The E channels a CTA expands at a time: 64 in fp32, 32 in bf16."""
+    return 64 if itemsize == 4 else 32
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def smem_bytes(plan: int, cin: int, itemsize: int) -> int:
+    """Shared-memory bytes of a CTA: the plan of csrc/expand_dw.cu `EdSmem`,
+    which it mirrors."""
+    resident = PLANS[plan] == "resident"
+    hpr = -(-(TILE[0] + 2) * (TILE[1] + 2) // 8) * 8
+    kdim = -(-cin // 16) * 16 if resident else STAGED_K
+    m = 32 if itemsize == 4 else 16
+    xld = kdim + (8 - kdim % m) % m
+    ec = chunk(itemsize)
+    w1ld = ec + (4 if itemsize == 4 else 8)
+    wa = _align16(_align16(hpr * xld * itemsize) + hpr * (ec + 4) * 4)
+    wa_bytes = _align16(_align16(kdim * w1ld * itemsize + 9 * ec * itemsize) + 4 * ec * 4)
+    return wa + (2 if resident else 1) * wa_bytes
+
+
+def pick_plan(cin: int, itemsize: int) -> int:
+    """The plan for cin input channels: the resident halo where it fits,
+    else the staged one (which fits at any cin)."""
+    return 1 if smem_bytes(1, cin, itemsize) <= _build.MAX_SMEM else 2
+
+
 def expand_dw_plain(x, w1, b1, wd, bd, bn1, bn2):
     """Plain PyTorch version. x (B,H,W,cin); w1 (cin,E); wd (3,3,E); b1, bd
     (E,) conv biases or None; bn1, bn2 inference (scale, shift) pairs of
     (E,). Computes in fp32 (float64 stays float64) and returns (B,H,W,E) in
-    x.dtype; the taps sum in row-major order, as JAX's kernel does."""
+    x.dtype; the taps sum in row-major order, as JAX's kernel does. For bf16
+    x also the kernel's bf16 operands and rounding points (JAX's kernel's):
+    w1 and wd rounded to bf16, the biases folded into the shifts, the
+    expand's product rounded to bf16 before BN1, u rounded to bf16."""
     ct = torch.promote_types(x.dtype, torch.float32)
     (s1, t1), (s2, t2) = ((s.to(ct), t.to(ct)) for s, t in (bn1, bn2))
-    y = x.to(ct) @ w1.to(ct)
+    low = x.dtype == torch.bfloat16
+
+    def rnd(t):
+        return t.to(torch.bfloat16).to(ct) if low else t
+
+    if low:
+        w1, wd = rnd(w1.to(ct)), rnd(wd.to(ct))
+        if b1 is not None:
+            t1, b1 = t1 + b1.to(ct) * s1, None
+        if bd is not None:
+            t2, bd = t2 + bd.to(ct) * s2, None
+    y = rnd(x.to(ct) @ w1.to(ct))
     if b1 is not None:
         y = y + b1.to(ct)
-    u = F.pad(lrelu(y * s1 + t1), (0, 0, 1, 1, 1, 1))
+    u = F.pad(rnd(lrelu(y * s1 + t1)), (0, 0, 1, 1, 1, 1))
     _, h, w, _ = x.shape
     wd = wd.to(ct)
     acc = None
@@ -59,6 +117,13 @@ def expand_dw(x, w1, b1, wd, bd, bn1, bn2):
     x float32 or bfloat16, NHWC contiguous, any H, W, cin and E. The conv
     biases are folded into the BN shifts first (t + b*s), as the TPU
     kernel's wrapper does (accunet_tpu/ops/pallas/expand_dw.py:90-98)."""
+    return _launch(x, w1, b1, wd, bd, bn1, bn2, plan=0)
+
+
+def _launch(x, w1, b1, wd, bd, bn1, bn2, *, plan):
+    """`expand_dw` with the kernel's plan: 0 picks it by cin and type
+    (`pick_plan`), a key of `PLANS` forces it (the card tests and
+    tools/kernel_ab.py's sweep)."""
 
     ct = torch.promote_types(x.dtype, torch.float32)
 
@@ -73,8 +138,12 @@ def expand_dw(x, w1, b1, wd, bd, bn1, bn2):
     e = w1.shape[1]
     _build.require(x, "x")
     dtype = _build.dtype_code(x)
-    w1k = w1.float().contiguous()
-    wdk = wd.float().reshape(9, e).contiguous()
+    plan = plan or pick_plan(cin, x.element_size())
+    if plan not in PLANS or smem_bytes(plan, cin, x.element_size()) > _build.MAX_SMEM:
+        raise ValueError(f"plan {plan} is not one of {sorted(PLANS)} or does not fit at cin {cin}")
+    # the products' weights in the input type (bf16: rounded, as JAX does)
+    w1k = w1.to(x.dtype).contiguous()
+    wdk = wd.to(x.dtype).reshape(9, e).contiguous()
     affe = torch.stack([s1, t1, s2, t2]).contiguous()
     _build.require(w1k, "w1", (cin, e), device=x.device)
     _build.require(wdk, "wd", (9, e), device=x.device)
@@ -82,7 +151,7 @@ def expand_dw(x, w1, b1, wd, bd, bn1, bn2):
     y = torch.empty((b, h, w, e), dtype=x.dtype, device=x.device)
     err = _build.load_library().accunet_expand_dw(
         x.data_ptr(), w1k.data_ptr(), wdk.data_ptr(), affe.data_ptr(), y.data_ptr(),
-        b, h, w, cin, e, dtype, _build.stream_of(x),
+        b, h, w, cin, e, plan, dtype, _build.stream_of(x),
     )
     _build.check(err, "accunet_expand_dw")
     expand_dw.launches += 1

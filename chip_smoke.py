@@ -31,8 +31,10 @@ From the root of a checkout, with one CUDA device:
      step, and each kernel against its plain version and, for the wgrad, the
      one PyTorch call that computes the same function (CUDA events, warm-up
      excluded), beside the least time the card could take for it (for
-     hanc_mix and hanc_block also the least time of their own path: 3xTF32
-     on the tensor cores in fp32);
+     hanc_mix, hanc_block and respath_level also the least time of their
+     own path: 3xTF32 on the tensor cores in fp32, bf16 mma in bf16), and
+     for respath_level cuDNN's 3x3 conv alone on the same x (a part of the
+     level, so no library call);
  10. holds the scan kernels (linear_scan forward and reverse, the staged
      dma_chunked_scan) against their plain versions at the four stage shapes
      of Segmamba b8 224x224, and the staged kernel bitwise against
@@ -62,7 +64,8 @@ From the root of a checkout, with one CUDA device:
  18. times ACC_UNet_W mc 512x512 b2 inference, fp32 and bf16, hybrid on and
      off, and expand_dw at both cnv72 shapes against its plain version, the
      unfused front half it replaces (the port's conv1x1, BN, lrelu,
-     depthwise, BN, lrelu) and its bound.
+     depthwise, BN, lrelu), its bound and its own path's bound (the expand
+     on the tensor cores, the taps on the CUDA cores).
 It prints a JSON line of the kernels, then as its last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 A failed phase raises, so the run exits non-zero and prints no result; so
@@ -85,6 +88,7 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 B, HW, NF = 8, 224, 32  # the main path: ACC_UNet, n_filts=32, 224x224, batch 8
 # the hybrid slice: ACC_UNet_W, 3 classes, 512x512, batch 2 (BASELINE config 4)
@@ -145,10 +149,13 @@ def rel_err(got, want) -> tuple[float, float]:
 class Case(NamedTuple):
     """One kernel call at a main-path shape: `run` and `plain` are closures
     over `args`; `flops` counts the operations the function needs. `own_path`
-    (operations per multiply-add pair counted in `flops`, peak operations per
-    second) prices the kernel's own arithmetic where it differs from the input
-    type's peak: hanc_mix and hanc_block in fp32 do each product three times
-    on the tensor cores (3xTF32)."""
+    prices the kernel's own arithmetic where it differs from the input
+    type's peak, as terms (operations per multiply-add pair counted, peak
+    operations per second, the operations, or None for `flops`): the
+    tensor-core kernels in fp32 do each product three times (3xTF32), in
+    bf16 once at the bf16 peak; expand_dw's taps run on the CUDA cores.
+    `conv_alone` (respath_level) is cuDNN's 3x3 conv on the same x: only a
+    part of the function, so no library call for it."""
     kernel: str
     name: str
     run: Callable
@@ -157,28 +164,37 @@ class Case(NamedTuple):
     flops: float
     library: Callable | None = None
     unfused: Callable | None = None  # the separate torch ops a fused kernel replaces
-    own_path: tuple[float, float] | None = None
+    own_path: tuple | None = None
+    conv_alone: Callable | None = None
 
 
-def nbytes(obj) -> int:
+def tensors(obj) -> list:
     if isinstance(obj, torch.Tensor):
-        return obj.numel() * obj.element_size()
+        return [obj]
     if isinstance(obj, (tuple, list)):
-        return sum(nbytes(o) for o in obj)
-    return 0
+        return [t for o in obj for t in tensors(o)]
+    return []
 
 
-def bound_ms(case: Case, out, factor: float = 1.0, peak: float | None = None
-             ) -> tuple[float, str]:
+def nbytes(obj, skip=()) -> int:
+    """Bytes of the tensors in `obj`, less those that alias a tensor of
+    `skip` (an output that is an input, unwritten: respath_level's x at
+    level 0)."""
+    seen = {t.data_ptr() for t in tensors(skip)}
+    return sum(t.numel() * t.element_size() for t in tensors(obj) if t.data_ptr() not in seen)
+
+
+def bound_ms(case: Case, out, own: bool = False) -> tuple[float, str]:
     """The least time the card could take: each input read once and each
-    output written once at 3.35 TB/s, or `factor` x the operations at `peak`,
-    by default the card's peak for the type of the call's first input (fp32
-    67 TFLOP/s, bf16 989 on the tensor cores, whatever the kernel itself
-    computes in), whichever is larger (H100 SXM data sheet). Called with
-    `*case.own_path` it is the least time of the kernel's own path."""
+    output that is not an input written once at 3.35 TB/s, or the operations at the card's peak
+    for the type of the call's first input (fp32 67 TFLOP/s, bf16 989 on
+    the tensor cores, whatever the kernel itself computes in), whichever is
+    larger (H100 SXM data sheet). With `own` the operations are priced by
+    `case.own_path`: the least time of the kernel's own path."""
     dtype = next(a.dtype for a in case.args if isinstance(a, torch.Tensor))
-    t_bytes = (nbytes(case.args) + nbytes(out)) / HBM_BYTES_PER_S * 1e3
-    t_ops = factor * case.flops / (peak or PEAK_FLOPS_PER_S[dtype]) * 1e3
+    t_bytes = (nbytes(case.args) + nbytes(out, skip=case.args)) / HBM_BYTES_PER_S * 1e3
+    terms = case.own_path if own else ((1, PEAK_FLOPS_PER_S[dtype], None),)
+    t_ops = sum(f * (case.flops if n is None else n) / peak for f, peak, n in terms) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -220,7 +236,8 @@ def kernel_cases(dev):
     def cases(dt):
         out = []
         # own path: 3xTF32 on the tensor cores in fp32, bf16 mma in bf16
-        own = (3, TF32_FLOPS_PER_S) if dt == torch.float32 else (1, PEAK_FLOPS_PER_S[dt])
+        own = ((3, TF32_FLOPS_PER_S, None),) if dt == torch.float32 else \
+            ((1, PEAK_FLOPS_PER_S[dt], None),)
         # HANCBlock bodies: cnv12, cnv22 (chained: cnv21's SE in the prologue),
         # cnv81 (the widest, cin 128), cnv91
         for name, hw, cin, e, cout, chained in [("cnv12", HW, NF, 3 * NF, NF, False),
@@ -244,10 +261,13 @@ def kernel_cases(dev):
             if prev:
                 args += [rn(B, hw, hw, c).to(dt), torch.rand(B, c, generator=g, device=dev),
                          1 + rn(c, s=0.1), rn(c, s=0.1)]
+            w_oihw = args[1].permute(3, 2, 0, 1).contiguous().to(dt)
             out.append(Case("respath_level", name,
                             lambda a=args: RP.respath_level(*a),
                             lambda a=args: RP.respath_level_reference(*a),
-                            tuple(args), 2 * B * hw * hw * 9 * c * c))
+                            tuple(args), 2 * B * hw * hw * 9 * c * c, own_path=own,
+                            conv_alone=lambda x=args[0], w=w_oihw: F.conv2d(
+                                x.permute(0, 3, 1, 2), w, padding=1)))
         # HANC mixes of the unfused blocks: cnv11 (E=9), cnv31, cnv61 (k=2), cnv72 (E=4352)
         for name, hw, c, cout, k in [("cnv11", HW, 9, 3, 3), ("cnv31", HW // 4, 6 * NF, 2 * NF, 3),
                                      ("cnv61", HW // 8, 48 * NF, 16 * NF, 2),
@@ -733,17 +753,20 @@ def time_kernels(cases):
             with torch.inference_mode():
                 out = case.run()
                 bound, bound_by = bound_ms(case, out)
-                own = bound_ms(case, out, *case.own_path) if case.own_path else None
+                own = bound_ms(case, out, own=True) if case.own_path else None
                 del out
                 k_ms, p_ms = time_ms(case.run), time_ms(case.plain)
                 lib_ms = time_ms(case.library) if case.library is not None else None
                 unf_ms = time_ms(case.unfused) if case.unfused is not None else None
+                conv_ms = time_ms(case.conv_alone) if case.conv_alone is not None else None
             times[(case.kernel, case.name, str(dt)[6:])] = {
                 "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": bound,
                 "bound_by": bound_by, **({"unfused_ms": unf_ms} if unf_ms is not None else {}),
+                **({"conv_alone_ms": conv_ms} if conv_ms is not None else {}),
                 **({"own_bound_ms": own[0], "own_bound_by": own[1]} if own else {})}
             lib = f"   library {lib_ms:8.3f} ms" if lib_ms is not None else ""
             lib += f"   unfused ops {unf_ms:8.3f} ms" if unf_ms is not None else ""
+            lib += f"   conv alone {conv_ms:8.3f} ms" if conv_ms is not None else ""
             lib += f"   own path's bound {own[0]:7.3f} ms ({own[1]})" if own else ""
             log(f"  {case.kernel:14s} {case.name:14s} {str(dt)[6:]:8s} kernel {k_ms:8.3f} ms   "
                 f"plain {p_ms:8.3f} ms   bound {bound:7.3f} ms ({bound_by}){lib}")
@@ -1021,6 +1044,12 @@ def expand_dw_cases(dev):
     ragged = (rn(cin, e, s=cin ** -0.5), rn(e, s=0.1), rn(3, 3, e, s=1 / 3), rn(e, s=0.1),
               (1 + rn(e, s=0.1), 2 + rn(e, s=0.1)), (1 + rn(e, s=0.1), rn(e, s=0.1)))
 
+    def own(dt, px, cin, e):
+        # the expand on the tensor cores (3xTF32 in fp32, bf16 mma in bf16),
+        # the taps on the CUDA cores in fp32
+        mma = (3, TF32_FLOPS_PER_S) if dt == torch.float32 else (1, PEAK_FLOPS_PER_S[dt])
+        return ((*mma, 2 * px * e * cin), (1, PEAK_FLOPS_PER_S[torch.float32], 2 * px * e * 9))
+
     def cases(dt):
         out = []
         blk = copy.deepcopy(block).to(dt).requires_grad_(False)
@@ -1028,14 +1057,16 @@ def expand_dw_cases(dev):
         c72, e72 = args[0].shape
         for name, shape in CNV72_SHAPES:
             x = rn(*shape).to(dt)
+            px = x[..., 0].numel()
             out.append(Case("expand_dw", name, lambda x=x: ED.expand_dw(x, *args),
                             lambda x=x: ED.expand_dw_plain(x, *args), (x, *args),
-                            2 * x[..., 0].numel() * e72 * (c72 + 9),
-                            unfused=lambda x=x: blk.front_unfused(x)))
+                            2 * px * e72 * (c72 + 9),
+                            unfused=lambda x=x: blk.front_unfused(x),
+                            own_path=own(dt, px, c72, e72)))
         x = rn(2, 13, 17, cin).to(dt)
         out.append(Case("expand_dw", "ragged", lambda: ED.expand_dw(x, *ragged),
                         lambda: ED.expand_dw_plain(x, *ragged), (x, *ragged),
-                        2 * 2 * 13 * 17 * e * (cin + 9)))
+                        2 * 2 * 13 * 17 * e * (cin + 9), own_path=own(dt, 2 * 13 * 17, cin, e)))
         return out
 
     return cases
@@ -1260,6 +1291,7 @@ def main() -> int:
 
     # the shapes whose times the kernels line lists per kernel
     by_shape = {"hanc_block": ("cnv12", "cnv22", "cnv81", "cnv91"),
+                "respath_level": ("rspth1.level0", "rspth1.level1", "rspth2.level1"),
                 "hanc_mix": ("cnv11", "cnv31", "cnv61", "cnv72"),
                 "dwconv2d_wgrad": ("cnv12", "cnv52", "cnv61", "cnv72")}
     timed_case = {"hanc_block": "cnv91", "respath_level": "rspth1.level1", "hanc_mix": "cnv72",
@@ -1309,7 +1341,8 @@ def main() -> int:
                         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                         "shape": f"{timed_case[name]} fp32"
                                  + ("" if name == "expand_dw" else f" b{B}")})
-        if name in ("hanc_mix", "hanc_block"):  # own path: 3xTF32 in fp32, bf16 mma
+        if name in ("hanc_mix", "hanc_block", "respath_level", "expand_dw"):
+            # own path: 3xTF32 in fp32, bf16 mma (expand_dw: and its taps)
             kernels[-1]["own_bound_ms"] = t["own_bound_ms"]
             kernels[-1]["own_bound_by"] = t["own_bound_by"]
         if name in by_shape:

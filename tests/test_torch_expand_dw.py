@@ -109,6 +109,53 @@ def test_plain_matches_the_interpret_mode_kernel(shift):
 
 
 @pytest.mark.parametrize("shift", [0.1, 2.0])
+def test_plain_bf16_matches_the_interpret_mode_kernel(shift):
+    """bf16: the plain version's rounding points (the kernel's: w1 and wd in
+    bf16, the expand's product and u rounded to bf16, the taps summed in
+    fp32, y = bf16(lrelu(acc*s2 + t2))) against JAX's interpret-mode kernel
+    and against float64 from the same bf16 operands. JAX's kernel does BN1,
+    the nine taps and BN2 as bf16 operations (the taps' sum rounded at every
+    add), so it sits further from float64 than the port: within the port's
+    bf16 bar of 1e-2 of the output's scale at BN1 shift 0.1 (measured 7.6e-3,
+    the port 2.6e-3), outside it at shift 2.0 (1.24e-2, the port 3.4e-3).
+    So: the port within 1e-2 of float64 at both shifts and of JAX's kernel
+    at shift 0.1; at shift 2.0 at least as close to float64 as JAX's kernel,
+    and within 2e-2 of JAX's kernel (measured 1.52e-2: the 1e-2 bar against
+    JAX is not met there, for JAX's bf16 tap sum)."""
+    ops = list(_operands(2, 8, 12, 16, 64, seed=3, shift=shift))
+    ops[0] = np.asarray(jnp.asarray(ops[0]).astype(jnp.bfloat16).astype(jnp.float32))
+    jops = _jax(ops)
+    jops[0] = jops[0].astype(jnp.bfloat16)
+    want = np.asarray(expand_dw_nhwc(*jops, interpret=True).astype(jnp.float32))
+    got = ED.expand_dw(*_torch(ops, torch.bfloat16)[:1], *_torch(ops)[1:])
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    f64 = _torch(ops, torch.float64)
+    f64[1], f64[3] = (t.to(torch.bfloat16).double() for t in (f64[1], f64[3]))
+    exact = ED.expand_dw_plain(*f64).numpy()
+    scale = np.abs(exact).max()
+    np.testing.assert_allclose(got, exact, rtol=0, atol=1e-2 * scale)
+    if shift < 1:
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-2 * scale)
+    else:
+        assert np.abs(got - exact).max() <= np.abs(want - exact).max()
+        np.testing.assert_allclose(got, want, rtol=0, atol=2e-2 * scale)
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_expand_dw_plans_fit_shared_memory(itemsize):
+    """The plan the wrapper picks for every cin up to 1024 fits the CTA's
+    shared memory in fp32 and bf16; the staged plan fits at any cin, and
+    cnv72's cin 128 keeps its halo resident."""
+    from accunet_tpu_torch.ops.kernels import _build
+
+    for cin in range(1, 1025):
+        assert ED.smem_bytes(ED.pick_plan(cin, itemsize), cin, itemsize) <= _build.MAX_SMEM
+        assert ED.smem_bytes(2, cin, itemsize) <= _build.MAX_SMEM
+    assert ED.PLANS[ED.pick_plan(128, itemsize)] == "resident"
+
+
+@pytest.mark.parametrize("shift", [0.1, 2.0])
 @pytest.mark.parametrize("b,h,w,cin,e", [(1, 7, 9, 5, 72), (2, 1, 1, 3, 4), (1, 2, 13, 1, 9)])
 def test_plain_matches_xla_at_a_ragged_shape(b, h, w, cin, e, shift):
     """(1, 7, 9), cin 5, E 72: no dimension a multiple of any tile; a 1x1

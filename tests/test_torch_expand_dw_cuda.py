@@ -1,9 +1,10 @@
 """The `expand_dw` CUDA kernel against its plain PyTorch version on the card,
-at ragged shapes (H, W not multiples of the 14x14 tile, E not a multiple of
-the 64-channel chunk, cin below, at and past the 32-channel staging step),
-with a large BN1 shift so that the activated padding ring is non-zero at
-all four borders, in fp32 and bf16; the wrapper's refusals; one hybrid
-HANCBlock on the card against the CPU.
+at ragged shapes (H, W not multiples of the 8x16 tile, E not a multiple
+of the E chunk of 64 (fp32) or 32 (bf16) channels, cin below and past the
+64-channel staging step and past what a resident halo holds), with a large
+BN1 shift so that the activated padding ring is non-zero at all four
+borders, in fp32 and bf16, every plan forced, a second call bitwise equal;
+the wrapper's refusals; one hybrid HANCBlock on the card against the CPU.
 
 Needs a CUDA device and nvcc (the kernels build at the first launch); skips
 without a device. chip_smoke.py phase 15 covers the main path's cnv72 shapes.
@@ -59,14 +60,39 @@ def _close(got, want, tol):
     (1, 1, 1, 3, 1, 2.0),
 ])
 def test_expand_dw_kernel(dev, dt, b, h, w, cin, e, shift):
+    _check(dev, dt, b, h, w, cin, e, shift)
+
+
+def _check(dev, dt, b, h, w, cin, e, shift, plan=0):
+    """The kernel (`plan` forced, or picked) against the plain version, and
+    a second call bitwise equal to the first."""
     dtype, tol = DTYPES[dt]
     ops = _operands(dev, dtype, b, h, w, cin, e, shift)
     before = ED.expand_dw.launches
-    got = ED.expand_dw(*ops)
+    got, again = ((ED._launch(*ops, plan=plan) if plan else ED.expand_dw(*ops))
+                  for _ in range(2))
     torch.cuda.synchronize()
-    assert ED.expand_dw.launches == before + 1
+    assert ED.expand_dw.launches == before + 2
     assert got.dtype == dtype
     _close(got, ED.expand_dw_plain(*ops), tol)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("plan", sorted(ED.PLANS))
+@pytest.mark.parametrize("cin,e", [(37, 200), (128, 264), (512, 96)])
+def test_expand_dw_every_plan(dev, dt, plan, cin, e):
+    """Each of the kernel's plans that fits, forced, on a ragged map with a
+    non-zero activated padding ring: cin not a multiple of 8, cnv72's cin
+    with E not a multiple of the E chunk, and cnv52's cin (where only the
+    staged plan fits in fp32)."""
+    from accunet_tpu_torch.ops.kernels import _build
+
+    if ED.smem_bytes(plan, cin, DTYPES[dt][0].itemsize) > _build.MAX_SMEM:
+        with pytest.raises(ValueError, match="does not fit"):
+            _check(dev, dt, 1, 4, 4, cin, e, 2.0, plan=plan)
+        return
+    _check(dev, dt, 2, 13, 17, cin, e, 2.0, plan=plan)
 
 
 def test_expand_dw_refuses_bad_operands(dev):

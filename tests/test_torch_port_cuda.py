@@ -81,25 +81,56 @@ def test_hanc_mix_every_tile(dev, dt, tile, k):
     _close(HM.hanc_mix(x, wt, bias, k, tile=tile), HM.hanc_mix_reference(x, wt, bias, k), tol)
 
 
-@pytest.mark.parametrize("dt", sorted(DTYPES))
-@pytest.mark.parametrize("b,h,w,c,prev", [
-    (1, 8, 16, 8, False), (2, 10, 20, 32, True), (1, 9, 17, 40, True), (1, 8, 8, 72, True),
-])
-def test_respath_level_kernel(dev, dt, b, h, w, c, prev):
+def _check_respath(dev, dt, b, h, w, c, prev, plan=0, seed=1):
+    """The kernel (`plan` forced, or picked) against the plain version, and
+    a second call bitwise equal to the first (y, x_i and the tile sums)."""
     dtype, tol = DTYPES[dt]
-    g = torch.Generator(device=dev).manual_seed(1)
+    g = torch.Generator(device=dev).manual_seed(seed)
     args = [_rn(g, dev, b, h, w, c).to(dtype), _rn(g, dev, 3, 3, c, c, s=(9 * c) ** -0.5),
             1 + _rn(g, dev, c, s=0.1), _rn(g, dev, c, s=0.1)]
     if prev:
         args += [_rn(g, dev, b, h, w, c).to(dtype),
                  torch.rand(b, c, generator=g, device=dev),
                  1 + _rn(g, dev, c, s=0.1), _rn(g, dev, c, s=0.1)]
-    got = RP.respath_level(*args)
+    before = RP.respath_level.launches
+    got, again = ((RP._launch(*args, plan=plan) if plan else RP.respath_level(*args))
+                  for _ in range(2))
     torch.cuda.synchronize()
+    assert RP.respath_level.launches == before + 2
     want = RP.respath_level_reference(*args)
     _close(got[0], want[0], tol)
     _close(got[1], want[1], tol)
     _close(got[2].sum(dim=1), want[2].sum(dim=1), max(tol, 1e-4))
+    assert all(torch.equal(p, q) for p, q in zip(got, again))
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("b,h,w,c,prev", [
+    (1, 8, 16, 8, False), (2, 10, 20, 32, True), (1, 9, 17, 40, True), (1, 8, 8, 72, True),
+    # rspth2's width on a ragged map (fp32: the streamed plan); C not a
+    # multiple of the 16-byte copies (element copies) or odd (scalar stores)
+    (2, 13, 21, 64, True), (1, 9, 11, 12, True), (1, 7, 19, 30, True), (2, 5, 6, 3, True),
+    (1, 20, 33, 128, False),
+    # wider than one K block (the streamed plan in both types): two blocks
+    # of 16-byte copies, a ragged C of element copies, four full blocks
+    (1, 9, 18, 200, True), (1, 7, 10, 130, True), (1, 5, 9, 512, False),
+])
+def test_respath_level_kernel(dev, dt, b, h, w, c, prev):
+    _check_respath(dev, dt, b, h, w, c, prev)
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("plan", sorted(RP.PLANS))
+@pytest.mark.parametrize("c", [32, 64, 72, 200])
+def test_respath_level_every_plan(dev, dt, plan, c):
+    """Each of the kernel's plans that is built for the type and takes C,
+    forced, on a ragged map with the SE apply of a previous level; the
+    others raise."""
+    if not RP.fits(plan, c, DTYPES[dt][0].itemsize):
+        with pytest.raises(ValueError, match="not built .* or does not fit"):
+            _check_respath(dev, dt, 1, 4, 4, c, True, plan=plan)
+        return
+    _check_respath(dev, dt, 2, 19, 35, c, True, plan=plan, seed=3)
 
 
 def _block(g, dev, cin, inv, cout, k):

@@ -23,6 +23,7 @@ from accunet_tpu.ops.pallas.hanc_block import hanc_block_frame
 from accunet_tpu.ops.pallas.respath import respath_level_frame
 from accunet_tpu_torch.ops.kernels import _build
 from accunet_tpu_torch.ops.kernels import hanc_block as HB
+from accunet_tpu_torch.ops.kernels import respath as RP
 from accunet_tpu_torch.ops.kernels.hanc_block import fold, hanc_block
 from accunet_tpu_torch.ops.kernels.hanc_mix import hanc_mix
 from accunet_tpu_torch.ops.kernels.respath import respath_level
@@ -132,6 +133,65 @@ def test_respath_level_matches_tpu_kernel(has_prev):
     np.testing.assert_allclose(xn.numpy(), np.asarray(s2d.unpack(jx)), **FUSED_TOL)
     want_s = np.asarray(jsums).sum(axis=1).reshape(b, 4, c).sum(axis=1)
     np.testing.assert_allclose(sums.sum(dim=1).numpy(), want_s, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("has_prev", [False, True])
+def test_respath_level_bf16_matches_tpu_kernel(has_prev):
+    """bf16: the plain version's rounding points (the kernel's: w, gate,
+    s_se, t_se and x_i in bf16, y = lrelu(bf16(acc*s_bn + t_bn))) against
+    JAX's interpret-mode kernel on the s2d frame, which does the SE apply
+    as bf16 operations. Tolerance 1e-2 of the output's scale, the port's
+    bf16 bar."""
+    b, h, c = 2, 16, 32
+    rs = np.random.RandomState(4)
+    bf = lambda a: np.asarray(jnp.asarray(a).astype(jnp.bfloat16).astype(jnp.float32))  # noqa: E731
+    x = bf(_rand(rs, (b, h, h, c)))
+    w = _rand(rs, (3, 3, c, c), 0.1)
+    s_bn, t_bn = 1.0 + _rand(rs, (c,), 0.1), _rand(rs, (c,), 0.1)
+    y_prev = bf(_rand(rs, (b, h, h, c))) if has_prev else None
+    gate = (0.5 + 0.5 * rs.rand(b, c)).astype(np.float32) if has_prev else None
+    s_se, t_se = (1.0 + _rand(rs, (c,), 0.1), _rand(rs, (c,), 0.1)) if has_prev else (None, None)
+
+    tile4 = lambda v: jnp.tile(jnp.asarray(v), 4)  # noqa: E731
+    pk = lambda a: s2d.pack(jnp.asarray(a).astype(jnp.bfloat16))  # noqa: E731
+    jy, jx, jsums = respath_level_frame(
+        pk(x), s2d.pack_conv3x3_kernel(jnp.asarray(w)), (tile4(s_bn), tile4(t_bn)),
+        pk(y_prev) if has_prev else None,
+        jnp.tile(jnp.asarray(gate), (1, 4)) if has_prev else None,
+        (tile4(s_se), tile4(t_se)) if has_prev else None,
+        interpret=True,
+    )
+    opt = (lambda a: None if a is None else _t(a))  # noqa: E731
+    y, xn, sums = RP.respath_level(_t(x).to(torch.bfloat16), _t(w), _t(s_bn), _t(t_bn),
+                                   None if y_prev is None else _t(y_prev).to(torch.bfloat16),
+                                   opt(gate), opt(s_se), opt(t_se))
+    assert y.dtype == xn.dtype == torch.bfloat16
+    for got, want in ((y, jy), (xn, jx)):
+        want = np.asarray(s2d.unpack(want).astype(jnp.float32))
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                                   atol=1e-2 * np.abs(want).max())
+    want_s = np.asarray(jsums).sum(axis=1).reshape(b, 4, c).sum(axis=1)
+    np.testing.assert_allclose(sums.sum(dim=1).numpy(), want_s, rtol=0,
+                               atol=1e-2 * np.abs(want_s).max())
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_respath_level_plans_fit_shared_memory(itemsize):
+    """The plan the wrapper picks for every C up to 1024 is built for the
+    type and fits the CTA's shared memory in fp32 and bf16, and so does the
+    8x16 streamed plan (the one that takes any C); every plan built is
+    picked at some C, and the resident ones take C <= K_MAX only. The card
+    tests force every plan that fits."""
+    picked = set()
+    for c in range(1, 1025):
+        plan = RP.pick_plan(c, itemsize)
+        picked.add(plan)
+        assert RP.fits(plan, c, itemsize) and RP.fits(3, c, itemsize)
+        assert RP.smem_bytes(plan, c, itemsize) <= _build.MAX_SMEM
+    assert picked == set(RP.BUILT[itemsize])
+    assert not RP.fits(1, RP.K_MAX + 1, 2) and not RP.fits(2, RP.K_MAX + 1, itemsize)
+    # the main path's widths take their resident plans
+    assert RP.pick_plan(32, itemsize) == 2
 
 
 @pytest.mark.parametrize("k,c,cout", [(2, 6, 5), (3, 9, 3), (3, 16, 8)])

@@ -1,24 +1,33 @@
 #!/usr/bin/env python3
-"""Time dwconv2d_wgrad and hanc_block, and the models that run them, for one
-tree of the port.
+"""Time the redesigned kernels (dwconv2d_wgrad, hanc_block, respath_level,
+expand_dw) and the models that run them, for one tree of the port.
 
-    python tools/kernel_ab.py [--tag NAME] [--json PATH] [--iters N] [--only KERNEL]
+    python tools/kernel_ab.py [--tag NAME] [--json PATH] [--iters N] [--only KERNEL ...]
                               [--sweep] [--graphs] [--models] [--contig]
 
 On one CUDA card, at chip_smoke.py's shapes (ACC_UNet, n_filts=32, b8
-224x224), in fp32 (TF32 off) and bf16:
+224x224; expand_dw also at ACC_UNet_W b2 512x512), in fp32 (TF32 off) and
+bf16:
   * dwconv2d_wgrad at cnv12, cnv52, cnv61 and cnv72: the kernel for dw alone
     and, where the tree's wrapper takes `bias_grad`, for dw and db; cuDNN's
     weight-only `aten.convolution_backward` on the same inputs; the error of
     dw against the plain version (max abs error / max |plain|);
   * hanc_block at cnv12, cnv22 (chained `pre`), cnv81 and cnv91: the kernel
     and its error against the plain version;
+  * respath_level at rspth1 level 0, rspth1 level 1 and rspth2 level 1: the
+    kernel, cuDNN's 3x3 conv alone on the same x (a part of the level) and
+    the error of y against the plain version;
+  * expand_dw at cnv72 of ACC_UNet b8 224x224 and of ACC_UNet_W b2 512x512
+    (a seeded cnv72-shaped HANCBlock's weights): the kernel, the unfused
+    front half it replaces (the block's `front_unfused`) and its error;
   * with --sweep (this tree only): dwconv2d_wgrad at each of its shapes
     under other splits (channel block, CTAs per block: `wgrad_plan`'s
-    overrides) and hanc_block at each of its shapes in every tile that holds
-    its width (`TILES`);
+    overrides), hanc_block at each of its shapes in every tile that holds
+    its width (`TILES`), respath_level and expand_dw at each of their shapes
+    in every plan that fits (`PLANS`);
   * with --models: ACC_UNet b8 224x224 and ACC_UNet_W (3 classes) b2 512x512
-    forwards in fp32 and bf16, and the ACC_UNet b8 224x224 fp32 train step;
+    forwards in fp32 and bf16 (W also with the hybrid front half on), and
+    the ACC_UNet b8 224x224 fp32 train step;
   * with --contig: for one ACC_UNet b8 224x224 train step, whether each
     depthwise backward met an NHWC-contiguous x and g (if not, its
     `.contiguous()` copied the map).
@@ -42,8 +51,10 @@ import subprocess
 import sys
 
 import torch
+import torch.nn.functional as F
 
 B, HW, NF = 8, 224, 32
+KERNELS = ("dwconv2d_wgrad", "hanc_block", "respath_level", "expand_dw")
 # name, map side, C
 WGRAD = [("cnv12", HW, 3 * NF), ("cnv52", HW // 16, 48 * NF), ("cnv61", HW // 8, 48 * NF),
          ("cnv72", HW // 4, 136 * NF)]
@@ -51,6 +62,11 @@ WGRAD = [("cnv12", HW, 3 * NF), ("cnv52", HW // 16, 48 * NF), ("cnv61", HW // 8,
 BLOCKS = [("cnv12", HW, NF, 3 * NF, NF, False), ("cnv22", HW // 2, 2 * NF, 6 * NF, 2 * NF, True),
           ("cnv81", HW // 2, 4 * NF, 12 * NF, 2 * NF, False),
           ("cnv91", HW, 2 * NF, 6 * NF, NF, False)]
+# name, map side, C, with the previous level's SE apply
+RESPATH = [("rspth1.level0", HW, NF, False), ("rspth1.level1", HW, NF, True),
+           ("rspth2.level1", HW // 2, 2 * NF, True)]
+# name, x shape (cnv72: cin 128 -> E 4352)
+EXPAND = [("cnv72.b8_224", (B, HW // 4, HW // 4, 4 * NF)), ("cnv72.w_b2_512", (2, 128, 128, 4 * NF))]
 
 
 GRAPHS = False  # --graphs: replay the calls from a CUDA graph (no host time between them)
@@ -90,9 +106,32 @@ def wgrad_library(x, g, k=3):
         [1, 1], False, [0, 0], c, [False, True, False])[1]
 
 
-def kernel_rows(iters: int, emit, only=None):
+def respath_args(rn, hw, c, prev, dt):
+    args = [rn(B, hw, hw, c).to(dt), rn(3, 3, c, c, s=1 / (9 * c) ** 0.5), 1 + rn(c, s=0.1),
+            rn(c, s=0.1)]
+    if prev:
+        args += [rn(B, hw, hw, c).to(dt), 0.5 + 0.5 * rn(B, c, s=0.5).sigmoid(),
+                 1 + rn(c, s=0.1), rn(c, s=0.1)]
+    return args
+
+
+def cnv72_block(dt):
+    """A cnv72-shaped hybrid HANCBlock (cin 128, inv_fctr 34) with seeded
+    weights, as chip_smoke.py builds it: its `expand_dw_args` and its
+    `front_unfused`."""
+    from accunet_tpu_torch.models import init_parameters
+    from accunet_tpu_torch.nn.acc_blocks import HANCBlock
+
+    block = init_parameters(HANCBlock(4 * NF, 4 * NF, 3, 34, hybrid=True),
+                            torch.Generator().manual_seed(15))
+    return block.eval().to(device="cuda", dtype=dt).requires_grad_(False)
+
+
+def kernel_rows(iters: int, emit, only=KERNELS):
     from accunet_tpu_torch.ops.kernels import dwconv2d as DW
+    from accunet_tpu_torch.ops.kernels import expand_dw as ED
     from accunet_tpu_torch.ops.kernels import hanc_block as HB
+    from accunet_tpu_torch.ops.kernels import respath as RP
 
     takes_db = "bias_grad" in inspect.signature(DW.dwconv2d_wgrad).parameters
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -101,7 +140,7 @@ def kernel_rows(iters: int, emit, only=None):
         return torch.randn(*shape, generator=g, device="cuda") * s
 
     for dt in (torch.float32, torch.bfloat16):
-        for name, hw, c in WGRAD if only in (None, "dwconv2d_wgrad") else ():
+        for name, hw, c in WGRAD if "dwconv2d_wgrad" in only else ():
             x, gy = rn(B, hw, hw, c).to(dt), rn(B, hw, hw, c).to(dt)
             with torch.inference_mode():
                 err = rel_err(DW.dwconv2d_wgrad(x, gy, 3, 3),
@@ -114,7 +153,7 @@ def kernel_rows(iters: int, emit, only=None):
                        "library_ms": time_ms(lambda: wgrad_library(x, gy), iters), "rel_err": err}
             emit(row)
             del x, gy
-        for name, hw, cin, e, cout, chained in BLOCKS if only in (None, "hanc_block") else ():
+        for name, hw, cin, e, cout, chained in BLOCKS if "hanc_block" in only else ():
             f = lambda n: 1.0 / n ** 0.5  # noqa: E731
             bns = {n: (1 + rn(d, s=0.1), rn(d, s=0.1)) for n, d in
                    [("norm1", e), ("norm2", e), ("hnc", cin), ("norm", cin), ("norm3", cout)]}
@@ -131,12 +170,41 @@ def kernel_rows(iters: int, emit, only=None):
                        "ms": time_ms(lambda: HB.hanc_block(x, p, 3, pre), iters), "rel_err": err}
             emit(row)
             del x, p, pre
+        for name, hw, c, prev in RESPATH if "respath_level" in only else ():
+            args = respath_args(rn, hw, c, prev, dt)
+            w_oihw = args[1].permute(3, 2, 0, 1).contiguous().to(dt)
+            with torch.inference_mode():
+                err = rel_err(RP.respath_level(*args)[0], RP.respath_level_reference(*args)[0])
+                row = {"kernel": "respath_level", "shape": name, "dtype": str(dt)[6:],
+                       "ms": time_ms(lambda: RP.respath_level(*args), iters),
+                       "conv_alone_ms": time_ms(lambda: F.conv2d(
+                           args[0].permute(0, 3, 1, 2), w_oihw, padding=1), iters),
+                       "rel_err": err}
+            emit(row)
+            del args
+        if "expand_dw" in only:
+            block = cnv72_block(dt)
+            front = block.expand_dw_args()
+            for name, shape in EXPAND:
+                x = rn(*shape).to(dt)
+                with torch.inference_mode():
+                    err = rel_err(ED.expand_dw(x, *front), ED.expand_dw_plain(x, *front))
+                    row = {"kernel": "expand_dw", "shape": name, "dtype": str(dt)[6:],
+                           "ms": time_ms(lambda: ED.expand_dw(x, *front), iters),
+                           "unfused_ms": time_ms(lambda: block.front_unfused(x), iters),
+                           "rel_err": err}
+                emit(row)
+                del x
+            del block, front
         torch.cuda.empty_cache()
 
 
-def sweep_rows(iters: int, emit):
+def sweep_rows(iters: int, emit, only=KERNELS):
+    from accunet_tpu_torch.ops.kernels import _build
     from accunet_tpu_torch.ops.kernels import dwconv2d as DW
+    from accunet_tpu_torch.ops.kernels import expand_dw as ED
     from accunet_tpu_torch.ops.kernels import hanc_block as HB
+    from accunet_tpu_torch.ops.kernels import respath as RP
 
     g = torch.Generator(device="cuda").manual_seed(0)
 
@@ -145,7 +213,7 @@ def sweep_rows(iters: int, emit):
 
     for dt in (torch.float32, torch.bfloat16):
         size = torch.finfo(dt).bits // 8
-        for name, hw, c in WGRAD:
+        for name, hw, c in WGRAD if "dwconv2d_wgrad" in only else ():
             x, gy = rn(B, hw, hw, c).to(dt), rn(B, hw, hw, c).to(dt)
             base = DW.wgrad_plan(B, hw, hw, c, 3, size, True)
             whole = -(-c // (16 // size)) * (16 // size)  # every channel in one block
@@ -164,7 +232,7 @@ def sweep_rows(iters: int, emit):
                           f"ctas{plan.ctas}{' direct' if direct else ''}",
                           "dtype": str(dt)[6:], "ms": ms})
             del x, gy
-        for name, hw, cin, e, cout, chained in BLOCKS:
+        for name, hw, cin, e, cout, chained in BLOCKS if "hanc_block" in only else ():
             p = HB.fold(rn(cin, e, s=cin ** -0.5), rn(e, s=0.1), rn(3, 3, e, s=1 / 3),
                         rn(e, s=0.1), rn(e, 5, cin, s=e ** -0.5), rn(cin, s=0.1),
                         rn(cin, cout, s=cin ** -0.5), rn(cout, s=0.1),
@@ -180,6 +248,28 @@ def sweep_rows(iters: int, emit):
                 emit({"kernel": "hanc_block", "shape": f"{name} tile{tile} {th}x{tw}x{ncol}",
                       "dtype": str(dt)[6:], "ms": ms})
             del x, p
+        for name, hw, c, prev in RESPATH if "respath_level" in only else ():
+            args = respath_args(rn, hw, c, prev, dt)
+            for plan, (th, ncol, streamed) in RP.PLANS.items():
+                if not RP.fits(plan, c, size):
+                    continue
+                with torch.inference_mode():
+                    ms = time_ms(lambda: RP._launch(*args, plan=plan), iters)
+                emit({"kernel": "respath_level", "shape": f"{name} plan{plan} {th}x16x{ncol} "
+                      f"{'streamed' if streamed else 'resident'}", "dtype": str(dt)[6:], "ms": ms})
+            del args
+        front = cnv72_block(dt).expand_dw_args() if "expand_dw" in only else None
+        for name, shape in EXPAND if "expand_dw" in only else ():
+            x = rn(*shape).to(dt)
+            for plan, halo in ED.PLANS.items():
+                if ED.smem_bytes(plan, shape[-1], size) > _build.MAX_SMEM:
+                    continue
+                with torch.inference_mode():
+                    ms = time_ms(lambda: ED._launch(x, *front, plan=plan), iters)
+                emit({"kernel": "expand_dw", "shape": f"{name} plan{plan} {halo}",
+                      "dtype": str(dt)[6:], "ms": ms})
+            del x
+        del front
         torch.cuda.empty_cache()
 
 
@@ -187,17 +277,20 @@ def model_rows(iters: int, emit):
     from accunet_tpu_torch.models import build, init_parameters
     from accunet_tpu_torch.train.engine import make_train_fns
 
-    for name, n_classes, hw, b in (("ACC_UNet", 1, HW, B), ("ACC_UNet_W", 3, 512, 2)):
+    for name, n_classes, hw, b, hybrid in (("ACC_UNet", 1, HW, B, False),
+                                           ("ACC_UNet_W", 3, 512, 2, False),
+                                           ("ACC_UNet_W", 3, 512, 2, True)):
         x = torch.randn(b, hw, hw, 3, device="cuda",
                         generator=torch.Generator("cuda").manual_seed(1))
         for dt in (torch.float32, torch.bfloat16):
             m = init_parameters(build(name, n_channels=3, n_classes=n_classes, n_filts=NF,
-                                      final_sigmoid=False), torch.Generator().manual_seed(0))
+                                      final_sigmoid=False, hybrid_expand_dw=hybrid),
+                                torch.Generator().manual_seed(0))
             m, xd = m.eval().to(device="cuda", dtype=dt), x.to(dt)
             with torch.inference_mode():
                 ms = time_ms(lambda: m(xd), iters)
-            emit({"kernel": "model", "shape": f"{name} b{b} {hw}x{hw} forward",
-                  "dtype": str(dt)[6:], "ms": ms})
+            emit({"kernel": "model", "shape": f"{name} b{b} {hw}x{hw} forward"
+                  + (" hybrid" if hybrid else ""), "dtype": str(dt)[6:], "ms": ms})
             del m, xd
         torch.cuda.empty_cache()
     model = init_parameters(build("ACC_UNet", n_channels=3, n_classes=1, n_filts=NF),
@@ -245,8 +338,8 @@ def main(argv=None) -> int:
     ap.add_argument("--tag", default="", help="a name for this tree, copied into every row")
     ap.add_argument("--json", default=None, help="write the rows here")
     ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--only", choices=("dwconv2d_wgrad", "hanc_block"), default=None,
-                    help="time this kernel alone")
+    ap.add_argument("--only", nargs="+", choices=KERNELS, default=KERNELS,
+                    help="time (and sweep) these kernels alone")
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--graphs", action="store_true")
     ap.add_argument("--models", action="store_true")
@@ -276,7 +369,7 @@ def main(argv=None) -> int:
     GRAPHS = args.graphs
     kernel_rows(args.iters, emit, args.only)
     if args.sweep:
-        sweep_rows(args.iters, emit)
+        sweep_rows(args.iters, emit, args.only)
     GRAPHS = False
     if args.models:
         model_rows(args.iters, emit)
