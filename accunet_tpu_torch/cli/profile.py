@@ -39,6 +39,8 @@ from collections import defaultdict
 
 # device-kernel name fragment -> family (first match wins)
 FAMILIES = (
+    ("selective_scan_fwd_kernel", "selective_scan_fwd"),
+    ("selective_scan_bwd", "selective_scan_bwd"),  # the kernel and its reduce launch
     ("linear_scan_kernel<true>", "linear_scan_reverse"),
     ("linear_scan_kernel<false>", "linear_scan"),
     ("hanc_block_kernel", "hanc_block"),
@@ -105,6 +107,8 @@ def main(argv=None):
     from accunet_tpu_torch.ops.kernels.hanc_mix import hanc_mix
     from accunet_tpu_torch.ops.kernels.respath import respath_level
     from accunet_tpu_torch.ops.kernels.scan import linear_scan, linear_scan_reverse
+    from accunet_tpu_torch.ops.kernels.selective_scan import (selective_scan_bwd,
+                                                              selective_scan_fwd)
     from accunet_tpu_torch.train import losses as L
 
     device = torch.device(args.device)
@@ -172,7 +176,9 @@ def main(argv=None):
             hooks += [mod.register_forward_pre_hook(pre), mod.register_forward_hook(post)]
         counters = {"hanc_block": hanc_block, "respath_level": respath_level,
                     "hanc_mix": hanc_mix, "expand_dw": expand_dw, "dwconv2d_wgrad": dwconv2d_wgrad,
-                    "linear_scan": linear_scan, "linear_scan_reverse": linear_scan_reverse}
+                    "linear_scan": linear_scan, "linear_scan_reverse": linear_scan_reverse,
+                    "selective_scan_fwd": selective_scan_fwd,
+                    "selective_scan_bwd": selective_scan_bwd}
         for fn in counters.values():
             fn.launches = 0
         step()

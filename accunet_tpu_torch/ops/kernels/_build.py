@@ -43,6 +43,8 @@ SIGNATURES = {
     "accunet_linear_scan_reverse": [_P] * 5 + [_I] * 3 + [_P],
     "accunet_linear_scan_staged": [_P] * 3 + [_I] * 5 + [_P],
     "accunet_expand_dw": [_P] * 5 + [_I] * 7 + [_P],
+    "accunet_selective_scan_fwd": [_P] * 11 + [_I] * 5 + [_P],
+    "accunet_selective_scan_bwd": [_P] * 22 + [_I] * 5 + [_P],
 }
 
 

@@ -1,32 +1,25 @@
 """Selective scan (the Mamba SSM recurrence), counterpart of
-accunet_tpu/ops/selective_scan.py (`_scan_bldn`, `selective_scan`).
+accunet_tpu/ops/selective_scan.py (`selective_scan`).
 
-The recurrence h[l] = exp(delta[l]*A)*h[l-1] + delta[l]*B[l]*u[l] runs in a
-(B, L, D, N) layout: L is the scan axis and D*N the columns of the chunked
-linear-scan kernel (ops/kernels/scan.py), which is differentiable through
-its reverse kernel. Layouts follow the torch API, as in JAX: u/delta
-(B, D, L), A (D, N), B/C (B, N, L), D (D,), z (B, D, L).
+The discretisation, the recurrence h[l] = exp(delta[l]*A)*h[l-1] +
+delta[l]*B[l]*u[l] and the C contraction run as one fused kernel forward and
+one backward (ops/kernels/selective_scan.py, `SelectiveScanFn`), so no
+(B, L, D, N) tensor reaches device memory. Layouts follow the torch API, as
+in JAX: u/delta (B, D, L), A (D, N), B/C (B, N, L), D (D,), z (B, D, L).
 
-Not ported yet: `selective_scan_rh` (the return-hidden variant) and the
-sequence-sharded scan (`parallel/seq_scan.py`) that `_scan_bldn` takes under
-an active mesh context.
+Not ported yet: `selective_scan_rh` (the return-hidden variant; it is to
+extend the fused forward with a hidden-state output) and the
+sequence-sharded scan (`parallel/seq_scan.py`) that JAX's `_scan_bldn` takes
+under an active mesh context.
 """
 
 from __future__ import annotations
 
-import torch
-import torch.nn.functional as F
-
-from accunet_tpu_torch.ops.kernels.scan import chunked_linear_scan
+from accunet_tpu_torch.ops.kernels.selective_scan import SelectiveScanFn
 
 
-def _scan_bldn(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """First-order scan over axis 1 of (B, L, D, N) tensors: one chunked
-    linear scan of the contiguous (B, L, D*N) view."""
-    bb, l, d, n = a.shape
-    h = chunked_linear_scan(a.reshape(bb, l, d * n).contiguous(),
-                            b.reshape(bb, l, d * n).contiguous())
-    return h.reshape(bb, l, d, n)
+def _f32(t):
+    return None if t is None else t.float()
 
 
 def selective_scan(u, delta, A, B, C, D=None, z=None, delta_bias=None,
@@ -34,25 +27,9 @@ def selective_scan(u, delta, A, B, C, D=None, z=None, delta_bias=None,
     """Standard Mamba selective scan: y (B, D, L) [and the last state
     (B, D, N)], computed in float32 and returned in u's dtype."""
     dtype_in = u.dtype
-    # (B, L, D) views of the (B, D, L) operands, made contiguous once so that
-    # the (B, L, D, N) products below come out contiguous
-    u_t = u.float().transpose(1, 2).contiguous()
-    dl = delta.float().transpose(1, 2)
-    if delta_bias is not None:
-        dl = dl + delta_bias.float()
-    if delta_softplus:
-        dl = F.softplus(dl)
-    dl = dl.contiguous()
-    bt = B.float().transpose(1, 2)  # (B, L, N)
-    a = torch.exp(dl[..., None] * A.float())
-    bu = (dl * u_t)[..., None] * bt[:, :, None, :]
-    h = _scan_bldn(a, bu)
-    y = torch.einsum("bldn,bln->bld", h, C.float().transpose(1, 2))
-    if D is not None:
-        y = y + u_t * D.float()
-    if z is not None:
-        y = y * F.silu(z.float().transpose(1, 2))
-    y = y.transpose(1, 2).to(dtype_in)
+    y, last = SelectiveScanFn.apply(*map(_f32, (u, delta, A, B, C, D, z, delta_bias)),
+                                    delta_softplus)
+    y = y.to(dtype_in)
     if return_last_state:
-        return y, h[:, -1].to(dtype_in)
+        return y, last.to(dtype_in)
     return y

@@ -38,17 +38,22 @@ From the root of a checkout, with one CUDA device:
  10. holds the scan kernels (linear_scan forward and reverse, the staged
      dma_chunked_scan) against their plain versions at the four stage shapes
      of Segmamba b8 224x224, and the staged kernel bitwise against
-     linear_scan;
- 11. checks ChunkedLinearScanFn's gradients against autograd of the plain
-     scan;
- 12. compares Segmamba at full width, b8 224x224, with the scan kernel
-     against the same GPU model through the plain scan, and a b1 64x64
-     forward GPU vs CPU;
+     linear_scan; then the fused selective scan (selective_scan_fwd and
+     selective_scan_bwd) against its plain versions at the four BiMamba
+     stage shapes and an odd one (out, the last state and all eight
+     gradients), and its backward bitwise on a second call;
+ 11. checks ChunkedLinearScanFn's and SelectiveScanFn's gradients against
+     autograd of their plain versions;
+ 12. compares Segmamba at full width, b8 224x224, through the fused kernels
+     against the same GPU model through the plain selective scan, and a b1
+     64x64 forward GPU vs CPU;
  13. runs the train entry point with --model Segmamba as in phase 7 and
-     checks 16 forward scans per train step and per validation forward and
-     16 reverse scans per train step;
- 14. times Segmamba inference and its train step, and each scan kernel per
-     stage against its plain version and its bound;
+     checks 16 fused forwards per train step and per validation forward, 16
+     fused backwards per train step and no linear_scan launch;
+ 14. times Segmamba inference and its train step, each scan kernel per
+     stage against its plain version and its bound, and each fused kernel
+     per stage against its plain version, the unfused path it replaces (the
+     glue around linear_scan / its reverse) and its bound;
  15. holds the expand_dw kernel (the hybrid HANCBlock front half) against its
      plain version at cnv72 of ACC_UNet b8 224x224, (8,56,56,128) -> 4352,
      at cnv72 of ACC_UNet_W b2 512x512, (2,128,128,128) -> 4352, and at a
@@ -782,6 +787,11 @@ SCAN_STAGES = tuple((f"stage{i}", B, (HW // 2 >> i) ** 2, 2 * f * 16)
                     for i, f in enumerate(SM_FEAT))
 SCANS_PER_FORWARD = 16
 SM_CMP_HW = 64  # GPU vs CPU forward: full width, b1, 64x64
+# the BiMamba selective scans: (name, B, L, d_inner), N = 16, and an odd shape
+# (L 300: a partial chunk; D 13: partial CTAs of 4 and 8 d)
+FUSED_STAGES = tuple((name, b, l, dn // 16) for name, b, l, dn in SCAN_STAGES)
+FUSED_ODD = ("odd", 3, 300, 13)
+N_STATES = 16
 
 
 def scan_inputs(g, b, l, d):
@@ -833,9 +843,70 @@ def check_scan_kernels():
     return worst
 
 
+def fused_inputs(g, b, l, d, n=N_STATES):
+    """The fused kernels' operands as BiMamba hands them (after the wrapper's
+    copies): u = silu(N(0, 1)), delta N(0, 0.5^2) before its softplus, A =
+    -(1..16) per row (the init), B, C, z ~ N(0, 1), D ~ 1 + N(0, 0.1^2),
+    bias ~ N(0, 0.1^2); and a cotangent g ~ N(0, 1)."""
+    def rn(*shape, s=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * s
+
+    ops = (F.silu(rn(b, d, l)), rn(b, d, l, s=0.5),
+           -torch.arange(1, n + 1, device="cuda", dtype=torch.float32).expand(d, n).contiguous(),
+           rn(b, n, l), rn(b, n, l), 1 + rn(d, s=0.1), rn(b, d, l), rn(d, s=0.1))
+    return ops, rn(b, d, l)
+
+
+def check_fused_scan():
+    """Phase 10b: selective_scan_fwd (with its chunk states) and
+    selective_scan_bwd against selective_scan_fwd_plain / _bwd_plain at the
+    four BiMamba stage shapes of Segmamba b8 224x224 and FUSED_ODD, with
+    BiMamba's flags (D, z, bias, softplus) and a cotangent on the last state
+    too: out, the last state and the eight gradients rel <= FP32_TOL, and
+    the backward's outputs bitwise equal on a second call. Returns {kernel:
+    max abs error vs plain}."""
+    from accunet_tpu_torch.ops.kernels import selective_scan as SS
+
+    g = torch.Generator("cuda").manual_seed(16)
+    worst, bad = {"selective_scan_fwd": 0.0, "selective_scan_bwd": 0.0}, []
+    for name, b, l, d in FUSED_STAGES + (FUSED_ODD,):
+        ops, gy = fused_inputs(g, b, l, d)
+        g_last = torch.randn(b, d, N_STATES, generator=g, device="cuda")
+        out, last, states = SS.selective_scan_fwd(*ops, True, save_states=True)
+        grads = SS.selective_scan_bwd(*ops, True, states, gy, g_last)
+        again = SS.selective_scan_bwd(*ops, True, states, gy, g_last)
+        torch.cuda.synchronize()
+        same = all(torch.equal(p, q) for p, q in zip(grads, again))
+        del again
+        want = SS.selective_scan_fwd_plain(*ops, True)
+        f_errs = [rel_err(out, want[0]), rel_err(last, want[1])]
+        del want
+        want = SS.selective_scan_bwd_plain(*ops, True, gy, g_last)
+        b_errs = {k: rel_err(p, q) for k, p, q in zip(
+            ("du", "ddelta", "dA", "dB", "dC", "dD", "dz", "dbias"), grads, want)}
+        rel = max([e[1] for e in f_errs] + [e[1] for e in b_errs.values()])
+        ok = rel <= FP32_TOL and same
+        worst["selective_scan_fwd"] = max(worst["selective_scan_fwd"], max(e[0] for e in f_errs))
+        worst["selective_scan_bwd"] = max(worst["selective_scan_bwd"],
+                                          max(e[0] for e in b_errs.values()))
+        log(f"  {'ok ' if ok else 'BAD'} selective_scan {name:6s} B{b} L{l} D{d} N{N_STATES}: out "
+            f"rel {f_errs[0][1]:.3e}, last state {f_errs[1][1]:.3e}; "
+            + ", ".join(f"{k} {v[1]:.3e}" for k, v in b_errs.items())
+            + f" (tol {FP32_TOL:g}); backward bitwise on a second call {same}")
+        if not ok:
+            bad.append(name)
+        del ops, gy, g_last, out, last, states, grads, want
+        torch.cuda.empty_cache()
+    if bad:
+        raise SmokeError(f"the fused selective scan disagrees with its plain versions: {bad}")
+    return worst
+
+
 def check_scan_autograd():
     """Phase 11: ChunkedLinearScanFn's gradients (reverse kernel) vs autograd
-    through linear_scan_plain, at stage 2's shape and the odd one."""
+    through linear_scan_plain, and SelectiveScanFn's (both fused kernels) vs
+    autograd through selective_scan_fwd_plain, at stage 2's shape and the odd
+    one."""
     from accunet_tpu_torch.ops.kernels.scan import ChunkedLinearScanFn, linear_scan_plain
 
     g = torch.Generator("cuda").manual_seed(11)
@@ -851,8 +922,23 @@ def check_scan_autograd():
             f"{rel:.3e} (tol {FP32_TOL:g})")
         if not ok:
             bad.append(name)
+    from accunet_tpu_torch.ops.kernels.selective_scan import (SelectiveScanFn,
+                                                              selective_scan_fwd_plain)
+
+    for name, b, l, d in (FUSED_STAGES[2], FUSED_ODD):
+        ops, gy = fused_inputs(g, b, l, d)
+        ops = [t.requires_grad_(True) for t in ops]
+        got = torch.autograd.grad(SelectiveScanFn.apply(*ops, True)[0], ops, gy)
+        want = torch.autograd.grad(selective_scan_fwd_plain(*ops, True)[0], ops, gy)
+        rel = max(rel_err(p, q)[1] for p, q in zip(got, want))
+        ok = rel <= FP32_TOL
+        log(f"  {'ok ' if ok else 'BAD'} SelectiveScanFn {name} B{b} L{l} D{d}: grads rel "
+            f"{rel:.3e} (tol {FP32_TOL:g})")
+        if not ok:
+            bad.append(f"SelectiveScanFn {name}")
     if bad:
-        raise SmokeError(f"ChunkedLinearScanFn disagrees with autograd of the plain scan: {bad}")
+        raise SmokeError(f"the scans' autograd functions disagree with autograd of their plain "
+                         f"versions: {bad}")
 
 
 def segmamba_model():
@@ -864,53 +950,85 @@ def segmamba_model():
                            torch.Generator().manual_seed(0)).eval()
 
 
+class PlainSelectiveScan:
+    """SelectiveScanFn's stand-in through the plain forward."""
+
+    @staticmethod
+    def apply(*args):
+        from accunet_tpu_torch.ops.kernels.selective_scan import selective_scan_fwd_plain
+
+        return selective_scan_fwd_plain(*args)
+
+
 @contextlib.contextmanager
 def plain_scan():
-    """Route selective_scan's chunked linear scan through linear_scan_plain."""
+    """Route selective_scan through selective_scan_fwd_plain (the glue
+    around linear_scan_plain) instead of the fused kernels."""
     from accunet_tpu_torch.ops import selective_scan as SS
-    from accunet_tpu_torch.ops.kernels.scan import linear_scan_plain
 
-    kernel = SS.chunked_linear_scan
-    SS.chunked_linear_scan = linear_scan_plain
+    kernel = SS.SelectiveScanFn
+    SS.SelectiveScanFn = PlainSelectiveScan
     try:
         yield
     finally:
-        SS.chunked_linear_scan = kernel
+        SS.SelectiveScanFn = kernel
+
+
+def unfused_selective_scan(u, delta, A, B, C, D, z, delta_bias, delta_softplus=True):
+    """The unfused path the fused kernels replace (the port's selective_scan
+    before them): the (B, L, D, N) glue around ChunkedLinearScanFn, whose
+    forward is the linear_scan kernel and backward linear_scan_reverse."""
+    from accunet_tpu_torch.ops.kernels.scan import chunked_linear_scan
+
+    u_t = u.transpose(1, 2).contiguous()
+    dl = delta.transpose(1, 2) + delta_bias
+    dl = (F.softplus(dl) if delta_softplus else dl).contiguous()
+    a = torch.exp(dl[..., None] * A)
+    bu = (dl * u_t)[..., None] * B.transpose(1, 2)[:, :, None, :]
+    bsz, l, d, n = a.shape
+    h = chunked_linear_scan(a.reshape(bsz, l, d * n).contiguous(),
+                            bu.reshape(bsz, l, d * n).contiguous()).reshape(bsz, l, d, n)
+    y = torch.einsum("bldn,bln->bld", h, C.transpose(1, 2)) + u_t * D
+    return (y * F.silu(z.transpose(1, 2))).transpose(1, 2), h[:, -1]
 
 
 def compare_segmamba(model):
-    """Phase 12: Segmamba b8 224x224 fp32 on the GPU with the scan kernel vs
-    the same GPU model through linear_scan_plain (logits and the four
-    encoder stages, rel <= FP32_TOL); then full width, b1 64x64, GPU vs CPU
-    (plain versions), rel <= MODEL_TOL."""
+    """Phase 12: Segmamba b8 224x224 fp32 on the GPU through the fused
+    selective scan vs the same GPU model through selective_scan_fwd_plain
+    (logits and the four encoder stages, rel <= FP32_TOL); then full width,
+    b1 64x64, GPU vs CPU (plain versions), rel <= MODEL_TOL."""
     from accunet_tpu_torch.ops.kernels.scan import linear_scan
+    from accunet_tpu_torch.ops.kernels.selective_scan import selective_scan_fwd
 
     gpu = copy.deepcopy(model).cuda()
     x = torch.randn(B, HW, HW, 3, device="cuda", generator=torch.Generator("cuda").manual_seed(12))
     feats = {}
     hook = gpu.vit.register_forward_hook(lambda mod, inp, out: feats.__setitem__(len(feats), out))
     with torch.inference_mode():
-        before = linear_scan.launches
+        before = (selective_scan_fwd.launches, linear_scan.launches)
         got = gpu(x)
         torch.cuda.synchronize()
-        n_kernel = linear_scan.launches - before
+        n_kernel = (selective_scan_fwd.launches - before[0], linear_scan.launches - before[1])
         with plain_scan():
             want = gpu(x)
         torch.cuda.synchronize()
-        n_plain = linear_scan.launches - before - n_kernel
+        n_plain = (selective_scan_fwd.launches - before[0] - n_kernel[0],
+                   linear_scan.launches - before[1] - n_kernel[1])
     hook.remove()
-    if (n_kernel, n_plain) != (SCANS_PER_FORWARD, 0):
-        raise SmokeError(f"the kernel forward launched {n_kernel} scans, the plain one {n_plain}")
+    if (n_kernel, n_plain) != ((SCANS_PER_FORWARD, 0), (0, 0)):
+        raise SmokeError(f"(selective_scan_fwd, linear_scan) launches: the kernel forward "
+                         f"{n_kernel}, the plain one {n_plain}")
     errs = {f"stage{i}": rel_err(p, q) for i, (p, q) in enumerate(zip(feats[0], feats[1]))}
     errs["logits"] = rel_err(got, want)
     worst = max(e[1] for e in errs.values())
-    log(f"  b{B} {HW}x{HW}, scan kernel vs linear_scan_plain on the GPU: "
+    log(f"  b{B} {HW}x{HW}, fused selective scan vs its plain version on the GPU "
+        f"({n_kernel[0]} selective_scan_fwd launches): "
         + ", ".join(f"{k} rel {v[1]:.3e}" for k, v in errs.items())
         + f" (|logit| <= {float(want.abs().max()):.3g}, tol {FP32_TOL:g})")
     del gpu, feats, got, want
     torch.cuda.empty_cache()
     if worst > FP32_TOL:
-        raise SmokeError("Segmamba with the scan kernel disagrees with the plain scan")
+        raise SmokeError("Segmamba through the fused kernels disagrees with the plain scan")
     xs = torch.from_numpy(np.random.default_rng(13).standard_normal(
         (1, SM_CMP_HW, SM_CMP_HW, 3), dtype=np.float32))
     with torch.inference_mode():
@@ -927,22 +1045,25 @@ def compare_segmamba(model):
 
 
 def segmamba_train_launches(steps, val_batches):
-    """Per Segmamba train step: 16 forward scans (2 layers x 2 branches x 4
-    stages) and their 16 reverse scans; per validation forward: 16 forward
-    scans; nothing else of the port's kernels."""
+    """Per Segmamba train step: 16 fused selective-scan forwards (2 layers x
+    2 branches x 4 stages) and their 16 fused backwards; per validation
+    forward: 16 fused forwards; nothing else of the port's kernels (the
+    standalone scans, linear_scan and its reverse, are on no path)."""
     zero = dict.fromkeys(("hanc_block", "respath_level", "hanc_mix", "expand_dw",
-                          "dwconv2d_wgrad", "linear_scan_staged"), 0)
-    return {"train_steps": {**zero, "linear_scan": SCANS_PER_FORWARD * steps,
-                            "linear_scan_reverse": SCANS_PER_FORWARD * steps},
-            "validation": {**zero, "linear_scan": SCANS_PER_FORWARD * val_batches,
-                           "linear_scan_reverse": 0}}
+                          "dwconv2d_wgrad", "linear_scan", "linear_scan_reverse",
+                          "linear_scan_staged"), 0)
+    return {"train_steps": {**zero, "selective_scan_fwd": SCANS_PER_FORWARD * steps,
+                            "selective_scan_bwd": SCANS_PER_FORWARD * steps},
+            "validation": {**zero, "selective_scan_fwd": SCANS_PER_FORWARD * val_batches,
+                           "selective_scan_bwd": 0}}
 
 
 def time_segmamba(model):
     """Phase 14a/b: Segmamba b8 224x224 fp32 inference and train step
     (binary Dice+BCE, its configured loss; backward; Adam), CUDA events,
     10 iterations after 3 warm-up, with peak memory."""
-    from accunet_tpu_torch.ops.kernels.scan import linear_scan, linear_scan_reverse
+    from accunet_tpu_torch.ops.kernels.selective_scan import (selective_scan_bwd,
+                                                              selective_scan_fwd)
     from accunet_tpu_torch.train import losses as L
     from accunet_tpu_torch.train.engine import make_train_fns
 
@@ -959,10 +1080,10 @@ def time_segmamba(model):
              .float()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    counts = (linear_scan.launches, linear_scan_reverse.launches)
+    counts = (selective_scan_fwd.launches, selective_scan_bwd.launches)
     ms = time_ms(lambda: fns.train_step(fns.state, batch), iters=10, warmup=3)
-    per_step = ((linear_scan.launches - counts[0]) / 13,
-                (linear_scan_reverse.launches - counts[1]) / 13)
+    per_step = ((selective_scan_fwd.launches - counts[0]) / 13,
+                (selective_scan_bwd.launches - counts[1]) / 13)
     _, stats = fns.train_step(fns.state, batch)
     if not bool(torch.isfinite(stats["loss"])):
         raise SmokeError("non-finite loss in the timed Segmamba train step")
@@ -972,8 +1093,8 @@ def time_segmamba(model):
     log(f"  Segmamba b{B} {HW}x{HW} fp32 inference: {i['ms_per_batch']:.3f} ms/batch, "
         f"{i['img_per_s']:.1f} img/s, peak {i['peak_mem_gib']:.2f} GiB; train step "
         f"{t['ms_per_step']:.3f} ms/step, {t['img_per_s']:.1f} img/s, peak "
-        f"{t['peak_mem_gib']:.2f} GiB; per step linear_scan {per_step[0]:g}, reverse "
-        f"{per_step[1]:g}")
+        f"{t['peak_mem_gib']:.2f} GiB; per step selective_scan_fwd {per_step[0]:g}, "
+        f"selective_scan_bwd {per_step[1]:g}")
     del m, fns
     torch.cuda.empty_cache()
     return out
@@ -1014,6 +1135,57 @@ def time_scan_kernels():
                     f"{a.numel() * 4 / 1e6:.0f} MB), {100 * bound / k_ms:.1f}% of it")
         del a, x, gy, h
     torch.cuda.empty_cache()
+    return times
+
+
+def time_fused_scan():
+    """Phase 14d: at each BiMamba stage shape, selective_scan_fwd (as
+    inference runs it: no chunk states) and selective_scan_bwd (from the
+    forward's chunk states, as the train step runs it) against their plain
+    versions, the unfused path each replaces (unfused_selective_scan's
+    forward: the glue and linear_scan; its backward through autograd: the
+    glue's and linear_scan_reverse) and the least time the card could take:
+    each input read once and each output written once at 3.35 TB/s, or the
+    fp32 operations (7 a (t, n) forward, 20 backward) at 67 TFLOP/s. No
+    single PyTorch call computes the selective scan."""
+    from accunet_tpu_torch.ops.kernels import selective_scan as SS
+
+    g = torch.Generator("cuda").manual_seed(17)
+    times = {}
+    for name, b, l, d in FUSED_STAGES:
+        ops, gy = fused_inputs(g, b, l, d)
+        pairs = b * l * d * N_STATES
+        with torch.inference_mode():
+            _, _, states = SS.selective_scan_fwd(*ops, True, save_states=True)
+        leaves = [t.clone().requires_grad_(True) for t in ops]
+        y_unf = unfused_selective_scan(*leaves)[0]
+        cases = {
+            "selective_scan_fwd": Case(
+                "selective_scan_fwd", name, lambda: SS.selective_scan_fwd(*ops, True),
+                lambda: SS.selective_scan_fwd_plain(*ops, True), (*ops,), 7 * pairs,
+                unfused=lambda: unfused_selective_scan(*ops)),
+            "selective_scan_bwd": Case(
+                "selective_scan_bwd", name,
+                lambda: SS.selective_scan_bwd(*ops, True, states, gy),
+                lambda: SS.selective_scan_bwd_plain(*ops, True, gy), (*ops, states, gy),
+                20 * pairs,
+                unfused=lambda: torch.autograd.grad(y_unf, leaves, gy, retain_graph=True)),
+        }
+        for kname, case in cases.items():
+            with torch.inference_mode(kname == "selective_scan_fwd"):
+                out = case.run()
+                bound, bound_by = bound_ms(case, out)
+                del out
+                k_ms = time_ms(case.run)
+                p_ms = time_ms(case.plain, iters=3, warmup=1)
+            unf_ms = time_ms(case.unfused, iters=5)
+            times[(kname, name)] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": None,
+                                    "bound_ms": bound, "bound_by": bound_by, "unfused_ms": unf_ms}
+            log(f"  {kname:24s} {name} B{b} L{l:5d} D{d:4d} N{N_STATES}: kernel {k_ms:8.3f} ms   "
+                f"plain {p_ms:8.3f} ms   unfused path {unf_ms:8.3f} ms   bound {bound:7.3f} ms "
+                f"({bound_by}), {100 * bound / k_ms:.1f}% of it")
+        del ops, gy, states, leaves, y_unf, cases
+        torch.cuda.empty_cache()
     return times
 
 
@@ -1192,6 +1364,8 @@ def main() -> int:
         from accunet_tpu_torch.ops.kernels.respath import respath_level
         from accunet_tpu_torch.ops.kernels.scan import (
             dma_chunked_scan, linear_scan, linear_scan_reverse)
+        from accunet_tpu_torch.ops.kernels.selective_scan import (
+            selective_scan_bwd, selective_scan_fwd)
     except ImportError as e:
         print(f"chip_smoke: run from the root of the repository ({e})", file=sys.stderr)
         return 2
@@ -1249,17 +1423,19 @@ def main() -> int:
 
     log("[10] scan kernels vs plain versions (Segmamba's stage shapes, b8)")
     worst.update(check_scan_kernels())
+    worst.update(check_fused_scan())
 
-    log("[11] ChunkedLinearScanFn gradients vs autograd of the plain scan")
+    log("[11] ChunkedLinearScanFn and SelectiveScanFn gradients vs autograd of the plain versions")
     check_scan_autograd()
 
-    log(f"[12] Segmamba, full width: scan kernel vs plain scan (b{B} {HW}x{HW}), GPU vs CPU")
+    log(f"[12] Segmamba, full width: fused selective scan vs plain (b{B} {HW}x{HW}), GPU vs CPU")
     sm_model = segmamba_model()
     sm_cmp = compare_segmamba(sm_model)
 
     log("[13] Segmamba through accunet_tpu_torch.cli.train on cuda, then --resume auto")
     counters.update(linear_scan=linear_scan, linear_scan_reverse=linear_scan_reverse,
-                    linear_scan_staged=dma_chunked_scan)
+                    linear_scan_staged=dma_chunked_scan, selective_scan_fwd=selective_scan_fwd,
+                    selective_scan_bwd=selective_scan_bwd)
     sm_launches = run_train_cli(counters, "Segmamba", segmamba_train_launches)
     launches["segmamba_train_cli_steps"] = sm_launches["train_steps"]
     launches["segmamba_train_cli_validation"] = sm_launches["validation"]
@@ -1267,6 +1443,7 @@ def main() -> int:
     log("[14] Segmamba timing")
     sm_rates = time_segmamba(sm_model)
     times.update({(k, c, "float32"): v for (k, c), v in time_scan_kernels().items()})
+    times.update({(k, c, "float32"): v for (k, c), v in time_fused_scan().items()})
     log("  " + json.dumps({"card": card, "segmamba": sm_rates, "segmamba_checks": sm_cmp}))
 
     log("[15] expand_dw vs its plain version (cnv72 of ACC_UNet b8 224x224 and of ACC_UNet_W b2 "
@@ -1296,7 +1473,8 @@ def main() -> int:
                 "dwconv2d_wgrad": ("cnv12", "cnv52", "cnv61", "cnv72")}
     timed_case = {"hanc_block": "cnv91", "respath_level": "rspth1.level1", "hanc_mix": "cnv72",
                   "dwconv2d_wgrad": "cnv72", "linear_scan": "stage0",
-                  "linear_scan_staged": "stage0", "expand_dw": "cnv72.w_b2_512"}
+                  "linear_scan_staged": "stage0", "expand_dw": "cnv72.w_b2_512",
+                  "selective_scan_fwd": "stage0", "selective_scan_bwd": "stage0"}
     # source, the TPU kernel it replaces, and the path whose run gives
     # `launches`: the inference kernels' own path is the eval CLI (they run
     # in the train CLI only in its validation forwards), the wgrad's is the
@@ -1304,10 +1482,13 @@ def main() -> int:
     # expand_dw's path is the W eval CLI (phase 16; off by default, so 0 on
     # the ACC_UNet eval path); its entry adds the unfused front half's time
     # and both cnv72 shapes.
-    # The scan kernels' path is Segmamba's train CLI; linear_scan's count adds
-    # its reverse instantiation's (both given apart). linear_scan_staged is on
-    # no path (JAX never dispatches its TPU kernel either): its count there is
-    # 0, and it ran only in phases 10 and 14
+    # The fused selective scan's path is Segmamba's train CLI (its forward
+    # also runs in the validation forwards); their entries add the unfused
+    # path's time and every stage. The standalone scans are on no path since
+    # the fused kernels took their place: linear_scan (whose count adds its
+    # reverse instantiation's; both given apart) and linear_scan_staged (JAX
+    # never dispatches its TPU kernel either) count 0 on Segmamba's path and
+    # ran only in phases 10 and 14
     meta = {
         "hanc_block": ("accunet_tpu_torch/csrc/hanc_block.cu",
                        "accunet_tpu/ops/pallas/hanc_block.py:335", "eval_cli"),
@@ -1324,6 +1505,10 @@ def main() -> int:
                                "segmamba_train_cli_steps"),
         "expand_dw": ("accunet_tpu_torch/csrc/expand_dw.cu",
                       "accunet_tpu/ops/pallas/expand_dw.py:77", "eval_cli_w"),
+        "selective_scan_fwd": ("accunet_tpu_torch/csrc/selective_scan.cu",
+                               "accunet_tpu/ops/pallas/scan.py:62", "segmamba_train_cli_steps"),
+        "selective_scan_bwd": ("accunet_tpu_torch/csrc/selective_scan.cu",
+                               "accunet_tpu/ops/pallas/scan.py:119", "segmamba_train_cli_steps"),
     }
 
     def count(c, name):
@@ -1355,6 +1540,10 @@ def main() -> int:
         if name == "linear_scan":
             kernels[-1]["launches_forward"] = launches[path]["linear_scan"]
             kernels[-1]["launches_reverse"] = launches[path]["linear_scan_reverse"]
+        if name.startswith("selective_scan"):
+            kernels[-1]["unfused_ms"] = t["unfused_ms"]
+            kernels[-1]["by_shape"] = {f"{c} float32": times[(name, c, "float32")]
+                                       for c, *_ in FUSED_STAGES}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Time the redesigned kernels (dwconv2d_wgrad, hanc_block, respath_level,
-expand_dw) and the models that run them, for one tree of the port.
+expand_dw, the selective scan) and the models that run them, for one tree of
+the port.
 
     python tools/kernel_ab.py [--tag NAME] [--json PATH] [--iters N] [--only KERNEL ...]
-                              [--sweep] [--graphs] [--models] [--contig]
+                              [--sweep] [--graphs] [--models] [--segmamba] [--contig]
 
 On one CUDA card, at chip_smoke.py's shapes (ACC_UNet, n_filts=32, b8
 224x224; expand_dw also at ACC_UNet_W b2 512x512), in fp32 (TF32 off) and
@@ -20,6 +21,12 @@ bf16:
   * expand_dw at cnv72 of ACC_UNet b8 224x224 and of ACC_UNet_W b2 512x512
     (a seeded cnv72-shaped HANCBlock's weights): the kernel, the unfused
     front half it replaces (the block's `front_unfused`) and its error;
+  * selective_scan at the four BiMamba stage shapes of Segmamba b8 224x224
+    (B 8, L 112^2 / 4^i, D 96 * 2^i, N 16), the operands as BiMamba hands
+    them (delta, B, C and z transposed views): the public `selective_scan`
+    forward (the fused kernel, or in an older tree the glue around the
+    linear_scan kernel) and its forward + backward through autograd, with
+    the peak memory the forward + backward adds;
   * with --sweep (this tree only): dwconv2d_wgrad at each of its shapes
     under other splits (channel block, CTAs per block: `wgrad_plan`'s
     overrides), hanc_block at each of its shapes in every tile that holds
@@ -28,6 +35,9 @@ bf16:
   * with --models: ACC_UNet b8 224x224 and ACC_UNet_W (3 classes) b2 512x512
     forwards in fp32 and bf16 (W also with the hybrid front half on), and
     the ACC_UNet b8 224x224 fp32 train step;
+  * with --segmamba: Segmamba b8 224x224 fp32 inference and train step
+    (binary Dice+BCE, Adam), each with its peak memory and the device time
+    of its 16 selective_scan forwards (CUDA events around each call);
   * with --contig: for one ACC_UNet b8 224x224 train step, whether each
     depthwise backward met an NHWC-contiguous x and g (if not, its
     `.contiguous()` copied the map).
@@ -54,7 +64,7 @@ import torch
 import torch.nn.functional as F
 
 B, HW, NF = 8, 224, 32
-KERNELS = ("dwconv2d_wgrad", "hanc_block", "respath_level", "expand_dw")
+KERNELS = ("dwconv2d_wgrad", "hanc_block", "respath_level", "expand_dw", "selective_scan")
 # name, map side, C
 WGRAD = [("cnv12", HW, 3 * NF), ("cnv52", HW // 16, 48 * NF), ("cnv61", HW // 8, 48 * NF),
          ("cnv72", HW // 4, 136 * NF)]
@@ -67,17 +77,21 @@ RESPATH = [("rspth1.level0", HW, NF, False), ("rspth1.level1", HW, NF, True),
            ("rspth2.level1", HW // 2, 2 * NF, True)]
 # name, x shape (cnv72: cin 128 -> E 4352)
 EXPAND = [("cnv72.b8_224", (B, HW // 4, HW // 4, 4 * NF)), ("cnv72.w_b2_512", (2, 128, 128, 4 * NF))]
+# Segmamba b8 224x224's BiMamba stages: name, L, d_inner (N 16)
+SCAN = [(f"stage{i}", (HW // 2 >> i) ** 2, 2 * f) for i, f in enumerate((48, 96, 192, 384))]
 
 
 GRAPHS = False  # --graphs: replay the calls from a CUDA graph (no host time between them)
 
 
-def time_ms(fn, iters: int) -> float:
+def time_ms(fn, iters: int, graphs: bool | None = None) -> float:
+    """CUDA-event time of fn per call; replayed from a CUDA graph with
+    --graphs unless `graphs` says otherwise."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     run = fn
-    if GRAPHS:
+    if GRAPHS if graphs is None else graphs:
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             fn()
@@ -197,6 +211,109 @@ def kernel_rows(iters: int, emit, only=KERNELS):
                 del x
             del block, front
         torch.cuda.empty_cache()
+    if "selective_scan" in only:
+        scan_rows(iters, emit)
+
+
+def bimamba_operands(g, l, d, n=16):
+    """selective_scan's operands as BiMamba._branch makes them: u (B, D, L)
+    contiguous; delta, B, C and z transposed views of (B, L, .) tensors."""
+    def rn(*shape, s=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * s
+
+    x_dbl = rn(B, l, 2 * n)
+    a = -torch.arange(1, n + 1, device="cuda", dtype=torch.float32).expand(d, n).contiguous()
+    return (F.silu(rn(B, d, l)), rn(B, l, d, s=0.5).transpose(1, 2), a,
+            x_dbl[..., :n].transpose(1, 2), x_dbl[..., n:].transpose(1, 2),
+            torch.ones(d, device="cuda"), rn(B, l, 2 * d)[..., d:].transpose(1, 2), rn(d, s=0.1))
+
+
+def scan_rows(iters: int, emit):
+    """The public selective_scan at each stage: forward (CUDA-graph replays
+    with --graphs) and forward + backward (CUDA events), fp32."""
+    from accunet_tpu_torch.ops.selective_scan import selective_scan
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for name, l, d in SCAN:
+        ops = bimamba_operands(g, l, d)
+        gy = torch.randn(B, d, l, generator=g, device="cuda")
+
+        def fwd():
+            return selective_scan(*ops[:6], z=ops[6], delta_bias=ops[7], delta_softplus=True)
+
+        with torch.inference_mode():
+            fwd_ms = time_ms(fwd, iters)
+        leaves = [t.detach().clone().requires_grad_(True) for t in ops]
+
+        def fwd_bwd():
+            y = selective_scan(*leaves[:6], z=leaves[6], delta_bias=leaves[7],
+                               delta_softplus=True)
+            y.backward(gy)
+
+        fwd_bwd()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fwd_bwd_ms = time_ms(fwd_bwd, max(iters // 4, 3), graphs=False)
+        emit({"kernel": "selective_scan", "shape": f"{name} B{B} L{l} D{d} N16",
+              "dtype": "float32", "fwd_ms": fwd_ms, "fwd_bwd_ms": fwd_bwd_ms,
+              "fwd_bwd_peak_mib": (torch.cuda.max_memory_allocated() - base) / 2 ** 20})
+        del ops, leaves, gy
+        torch.cuda.empty_cache()
+
+
+def segmamba_rows(iters: int, emit):
+    """Segmamba b8 224x224 fp32 inference and train step, with peak memory
+    and the summed device spans of the selective_scan forwards."""
+    from accunet_tpu_torch.models import build, init_parameters
+    from accunet_tpu_torch.nn import ssm
+    from accunet_tpu_torch.train import losses as L
+    from accunet_tpu_torch.train.engine import make_train_fns
+
+    spans, scan = [], ssm.selective_scan
+
+    def timed_scan(*a, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = scan(*a, **kw)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    def span_ms(fn):
+        spans.clear()
+        ssm.selective_scan = timed_scan
+        try:
+            fn()
+        finally:
+            ssm.selective_scan = scan
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in spans), len(spans)
+
+    model = init_parameters(build("Segmamba", in_chans=3, out_chans=1),
+                            torch.Generator().manual_seed(0)).cuda().eval()
+    g = torch.Generator("cuda").manual_seed(14)
+    x = torch.rand(B, HW, HW, 3, generator=g, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        ms = time_ms(lambda: model(x), iters)
+        scan_ms, calls = span_ms(lambda: model(x))
+    emit({"kernel": "model", "shape": f"Segmamba b{B} {HW}x{HW} forward", "dtype": "float32",
+          "ms": ms, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "selective_scan_fwd_ms": scan_ms, "selective_scan_calls": calls})
+    fns = make_train_fns(model.train(), loss_fn=L.binary_dice_bce)
+    batch = {"image": x, "mask": (torch.rand(B, HW, HW, 1, generator=g, device="cuda") > 0.5)
+             .float()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(lambda: fns.train_step(fns.state, batch), iters)
+    scan_ms, calls = span_ms(lambda: fns.train_step(fns.state, batch))
+    emit({"kernel": "model", "shape": f"Segmamba b{B} {HW}x{HW} train step", "dtype": "float32",
+          "ms": ms, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "selective_scan_fwd_ms": scan_ms, "selective_scan_calls": calls})
+    del model, fns
+    torch.cuda.empty_cache()
 
 
 def sweep_rows(iters: int, emit, only=KERNELS):
@@ -343,6 +460,7 @@ def main(argv=None) -> int:
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--graphs", action="store_true")
     ap.add_argument("--models", action="store_true")
+    ap.add_argument("--segmamba", action="store_true")
     ap.add_argument("--contig", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -373,6 +491,8 @@ def main(argv=None) -> int:
     GRAPHS = False
     if args.models:
         model_rows(args.iters, emit)
+    if args.segmamba:
+        segmamba_rows(args.iters, emit)
     if args.contig:
         contig_rows(emit)
     if args.json:
