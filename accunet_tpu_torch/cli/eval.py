@@ -4,7 +4,9 @@
         --test-dir /data/ISIC18/Test_Folder \
         [--torch-ckpt best_model-ACC_UNet.pth.tar] [--csv out.csv] [--device cuda]
 
-Without --torch-ckpt the model gets seeded random weights. `--device cuda`
+Any registry name evaluates the same way (`--model UNext`, `UNext_S`, the
+ported UNext_CMRF names, ...). Without --torch-ckpt the model gets seeded
+random weights. `--device cuda`
 (the default) raises when CUDA is unavailable; it never falls back to the CPU.
 """
 

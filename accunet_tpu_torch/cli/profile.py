@@ -3,6 +3,7 @@
     python -m accunet_tpu_torch.cli.profile --model ACC_UNet --img 224 --batch 8 \
         [--dtype bfloat16] [--steps 5] [--device cuda] [--train]
     python -m accunet_tpu_torch.cli.profile --model Segmamba [--train]
+    python -m accunet_tpu_torch.cli.profile --model UNext [--dtype bfloat16] [--train]
     python -m accunet_tpu_torch.cli.profile --model ACC_UNet_W --img 512 --batch 2 \
         [--model-kwargs "{'hybrid_expand_dw': True}"]
 
@@ -48,6 +49,12 @@ FAMILIES = (
     ("hanc_mix_kernel", "hanc_mix"),
     ("expand_dw_kernel", "expand_dw"),
     ("dwconv_wgrad", "dwconv2d_wgrad"),
+    # the library's depthwise / grouped convs (cuDNN's conv2d_c1_k1_nhwc for
+    # a depthwise 3x3 on NHWC, its grouped direct kernel, torch's own), apart
+    # from the hand-written kernels above and the dense convs below
+    ("conv2d_c1_k1", "grouped conv (library)"),
+    ("depthwise", "grouped conv (library)"),
+    ("grouped", "grouped conv (library)"),
     ("batch_norm", "batchnorm"),
     ("bn_fw", "batchnorm"),
     ("gemm", "gemm/conv"),

@@ -7,7 +7,10 @@
 
 `--model Segmamba` trains the SegMamba baseline (built with in_chans /
 out_chans, as the JAX CLI builds SegMamba models; binary Dice+BCE at 224 by
-the config). `--synthetic` trains on a generated random npy folder instead
+the config). `--model UNext` (UNeXt, BASELINE config 3; also UNext_S and the
+ported UNext_CMRF names) trains with weighted Dice+BCE, at 224 for UNext by
+the config; each train step runs the dwconv2d_wgrad kernel once per
+shifted-MLP block. `--synthetic` trains on a generated random npy folder instead
 of dataset directories. Seeding: numpy, the loaders and the model's initialisation (a
 torch.Generator) all take cfg.train.seed. `--device cuda` (the default)
 raises when CUDA is unavailable; it never falls back to the CPU. Training

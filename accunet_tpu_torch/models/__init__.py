@@ -1,6 +1,7 @@
 """Model registry of the port, under the JAX package's registry names
-(accunet_tpu/models/__init__.py): the ACC-UNet family and the SegMamba
-baseline."""
+(accunet_tpu/models/__init__.py): the ACC-UNet family, the SegMamba
+baseline, UNeXt and the UNext_CMRF family (whose unported variants raise
+NotImplementedError when built)."""
 
 from __future__ import annotations
 
@@ -18,6 +19,9 @@ from accunet_tpu_torch.models.acc_unet import (
     ACCUNet,
 )
 from accunet_tpu_torch.models.segmamba import SegMamba, build_segmamba
+from accunet_tpu_torch.models.unext import UNext, UNext_S
+from accunet_tpu_torch.models.unext_cmrf import VARIANTS as _CMRF_VARIANTS
+from accunet_tpu_torch.models.unext_cmrf import build_unext_cmrf
 from accunet_tpu_torch.nn.acc_blocks import MLFC
 from accunet_tpu_torch.nn.ssm import BiMamba
 
@@ -27,6 +31,10 @@ registry: Dict[str, Callable] = {
     "ACC_UNet_W": ACC_UNet_W,
     # SegMamba builders take in_chans/out_chans, as in JAX
     "Segmamba": functools.partial(build_segmamba, "Segmamba"),
+    "UNext": UNext,
+    "UNeXt": UNext,  # the reference factory's spelling
+    "UNext_S": UNext_S,
+    **{name: functools.partial(build_unext_cmrf, name) for name in _CMRF_VARIANTS},
 }
 
 
@@ -65,5 +73,6 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
     return model
 
 
-__all__ = ["ACCUNet", "ACC_UNet", "ACC_UNet_Lite", "ACC_UNet_W", "SegMamba", "build",
-           "build_segmamba", "init_parameters", "registry"]
+__all__ = ["ACCUNet", "ACC_UNet", "ACC_UNet_Lite", "ACC_UNet_W", "SegMamba", "UNext",
+           "UNext_S", "build", "build_segmamba", "build_unext_cmrf", "init_parameters",
+           "registry"]

@@ -47,16 +47,18 @@ __all__ = [
 class BatchNorm(nn.BatchNorm2d):
     """BatchNorm over the last axis of an NHWC tensor (run on its
     channels_last NCHW view), with flax's semantics (`batch_norm`,
-    accunet_tpu/nn/acc_blocks.py:98-105): eps 1e-5; in train mode it
-    normalises with the biased batch variance and updates
-    running = 0.9 * running + 0.1 * batch for the mean and the *biased*
-    variance, in fp32 (torch's BatchNorm2d would take the unbiased one).
+    accunet_tpu/nn/acc_blocks.py:98-105): eps 1e-5 by default; in train
+    mode it normalises with the biased batch variance and updates
+    running = (1 - momentum) * running + momentum * batch (momentum 0.1,
+    flax's 0.9, by default) for the mean and the *biased* variance, in fp32
+    (torch's BatchNorm2d would take the unbiased one). CMRF's ConvBNAct
+    takes eps 1e-3 and momentum 0.03 (flax 0.97).
 
     `frozen_stats` skips that update; the model sets it while activation
     checkpointing recomputes a block, so a step updates the statistics once."""
 
-    def __init__(self, num_features: int):
-        super().__init__(num_features, eps=1e-5, momentum=0.1)
+    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1):
+        super().__init__(num_features, eps=eps, momentum=momentum)
         self.frozen_stats = False
 
     def scale_shift(self) -> tuple[torch.Tensor, torch.Tensor]:

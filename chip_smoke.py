@@ -70,7 +70,26 @@ From the root of a checkout, with one CUDA device:
      off, and expand_dw at both cnv72 shapes against its plain version, the
      unfused front half it replaces (the port's conv1x1, BN, lrelu,
      depthwise, BN, lrelu), its bound and its own path's bound (the expand
-     on the tensor cores, the taps on the CUDA cores).
+     on the tensor cores, the taps on the CUDA cores);
+ 19. holds dwconv2d_wgrad against its plain version at the four ShiftedBlock
+     shapes of UNext b8 224x224, (8,14,14,160), (8,7,7,256), (8,14,14,160),
+     (8,28,28,128), fp32 and bf16, dw and db, a second call bitwise;
+ 20. runs UNext (full width, seeded weights) through the eval entry point at
+     224x224, batch 8, and checks that no port kernel launched (its
+     depthwise forward is cuDNN's grouped conv, as it is XLA's in JAX);
+ 21. runs the train entry point with --model UNext as in phase 7 and checks
+     4 dwconv2d_wgrad launches per train step (one per ShiftedBlock) and none
+     per validation forward;
+ 22. compares UNext on the GPU with the CPU: a b1 224x224 forward (logits
+     and five module outputs), and one b8 224x224 train step against the
+     same step in float64 on the CPU, held as phase 8 holds ACC_UNet's;
+ 23. compares the four distinct UNext_CMRF topologies (UNext_CMRF, _enc_dec,
+     _enc_MLFC, _dense_skip) at b1 64x64, GPU vs CPU;
+ 24. times UNext b8 224x224 inference in fp32 and bf16, its fp32 train step,
+     its b1024 bf16 inference (the JAX bench's headline batch) with peak
+     memory, UNext_CMRF b8 fp32 inference and train step, and the wgrad
+     kernel at phase 19's shapes beside its plain version, cuDNN's
+     weight-only backward and its bound. Phases 19-24 print their seconds.
 It prints a JSON line of the kernels, then as its last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 A failed phase raises, so the run exits non-zero and prints no result; so
@@ -213,10 +232,20 @@ def wgrad_library(x, g, k):
         [1, 1], False, [0, 0], c, [False, True, False])[1]
 
 
+def wgrad_case(name, x, g):
+    """dwconv2d_wgrad (3x3, with db) on x and g (B, H, W, C): the plain
+    version and cuDNN's weight-only backward beside it."""
+    from accunet_tpu_torch.ops.kernels import dwconv2d as DW
+
+    b, h, w, c = x.shape
+    return Case("dwconv2d_wgrad", name, lambda: DW.dwconv2d_wgrad(x, g, 3, 3, bias_grad=True),
+                lambda: (DW.dwconv2d_wgrad_reference(x, g, 3, 3), g.float().sum(dim=(0, 1, 2))),
+                (x, g), 2 * 9 * b * h * w * c + b * h * w * c, lambda: wgrad_library(x, g, 3))
+
+
 def kernel_cases(dev):
     """Cases at the main path's shapes, as closures over random inputs of
     dtype dt."""
-    from accunet_tpu_torch.ops.kernels import dwconv2d as DW
     from accunet_tpu_torch.ops.kernels import hanc_block as HB
     from accunet_tpu_torch.ops.kernels import hanc_mix as HM
     from accunet_tpu_torch.ops.kernels import respath as RP
@@ -286,13 +315,7 @@ def kernel_cases(dev):
         # (E=96), cnv52 and cnv61 (E=1536), cnv72 (E=4352)
         for name, hw, c in [("cnv12", HW, 3 * NF), ("cnv52", HW // 16, 48 * NF),
                             ("cnv61", HW // 8, 48 * NF), ("cnv72", HW // 4, 136 * NF)]:
-            args = (rn(B, hw, hw, c).to(dt), rn(B, hw, hw, c).to(dt))
-            out.append(Case("dwconv2d_wgrad", name,
-                            lambda a=args: DW.dwconv2d_wgrad(*a, 3, 3, bias_grad=True),
-                            lambda a=args: (DW.dwconv2d_wgrad_reference(*a, 3, 3),
-                                            a[1].float().sum(dim=(0, 1, 2))),
-                            args, 2 * 9 * B * hw * hw * c + B * hw * hw * c,
-                            lambda a=args: wgrad_library(*a, 3)))
+            out.append(wgrad_case(name, rn(B, hw, hw, c).to(dt), rn(B, hw, hw, c).to(dt)))
         return out
 
     return cases
@@ -340,6 +363,10 @@ def check_kernels(cases, worst_bf16=None):
 # fused blocks (4 of them chained), the 7 levels of rspth1/rspth2, the 9 HANC
 # layers with k >= 2 of the unfused blocks; with the hybrid on, cnv72's front half
 EVAL_LAUNCHES = {"hanc_block": 7, "respath_level": 7, "hanc_mix": 9, "expand_dw": 0}
+# every kernel wrapper's counter, by name
+KERNELS = ("hanc_block", "respath_level", "hanc_mix", "expand_dw", "dwconv2d_wgrad",
+           "linear_scan", "linear_scan_reverse", "linear_scan_staged", "selective_scan_fwd",
+           "selective_scan_bwd")
 
 
 def run_eval_cli(counters, model="ACC_UNet", n_classes=1, hw=HW, batch=B, n=2 * B,
@@ -523,73 +550,103 @@ def bn_stat_err(got, want, init):
 
 
 class DepthwiseTaps:
-    """Forward hooks that keep, for every HANCBlock, the input x of its
-    depthwise conv (lrelu of norm1's output) and the gradient g of its
-    output (norm2's input), so that each depthwise weight gradient of a step
-    can be held against the plain wgrad of the same x and g."""
+    """Forward hooks that keep, for every depthwise conv of a step, its input
+    x and the gradient g of its output, so that each depthwise weight (and
+    bias) gradient can be held against the plain wgrad of the same x and g:
+    a HANCBlock's conv2 (x is lrelu of norm1's output, g norm2's input's
+    gradient) and a UNeXt DWConv (its own input and output). The bias
+    gradient is held for the DWConvs only: a HANCBlock's conv2 feeds a
+    train-mode BN, which takes the mean out of g, so its db is rounding
+    noise around 0."""
 
     def __init__(self, model):
         from accunet_tpu_torch.nn.acc_blocks import HANCBlock, lrelu
+        from accunet_tpu_torch.nn.unext_blocks import DWConv
 
-        self.x, self.g, self.blocks = {}, {}, {}
+        self.x, self.g, self.convs, self.with_db = {}, {}, {}, set()
+
+        def keep_g(name):
+            def hook(t):  # returns None: a pre-hook's input stays as it is
+                t.register_hook(lambda g: self.g.__setitem__(name, g.detach()))
+            return hook
 
         def keep_x(name):
             return lambda mod, inp, out: self.x.__setitem__(name, lrelu(out).detach())
 
-        def keep_g(name):
-            def hook(mod, inp):  # returns None: the input stays as it is
-                inp[0].register_hook(lambda g: self.g.__setitem__(name, g.detach()))
+        def keep_both(name):
+            def hook(mod, inp, out):
+                self.x[name] = inp[0].detach()
+                keep_g(name)(out)
             return hook
 
         self.handles = []
         for name, mod in model.named_modules():
             if isinstance(mod, HANCBlock):
-                self.blocks[name] = mod
+                self.convs[name] = mod.conv2
                 self.handles += [mod.norm1.register_forward_hook(keep_x(name)),
-                                 mod.norm2.register_forward_pre_hook(keep_g(name))]
+                                 mod.norm2.register_forward_pre_hook(
+                                     lambda m, inp, name=name: keep_g(name)(inp[0]))]
+            elif isinstance(mod, DWConv):
+                self.convs[name] = mod.dwconv
+                self.with_db.add(name)
+                self.handles.append(mod.register_forward_hook(keep_both(name)))
 
     def worst(self):
-        """(largest max |dw - plain| / max |plain| over the blocks, block)."""
+        """(largest max |dw - plain| / max |plain| over the convs, the conv's
+        block), and the number of convs; a DWConv's db against g summed
+        likewise."""
         from accunet_tpu_torch.ops.kernels.dwconv2d import dwconv2d_wgrad_reference
 
         for h in self.handles:
             h.remove()
         errs = []
-        for name, mod in self.blocks.items():
-            kh, kw = mod.conv2.weight.shape[2:]
-            want = dwconv2d_wgrad_reference(self.x[name], self.g[name].contiguous(), kh, kw)
-            errs.append((rel_err(mod.conv2.weight.grad, want.permute(2, 0, 1).unsqueeze(1))[1],
-                         name))
-        return max(errs), len(errs)
+        for name, conv in self.convs.items():
+            kh, kw = conv.weight.shape[2:]
+            g = self.g[name].contiguous()
+            want = dwconv2d_wgrad_reference(self.x[name], g, kh, kw)
+            errs.append((rel_err(conv.weight.grad, want.permute(2, 0, 1).unsqueeze(1))[1], name))
+            if name in self.with_db:
+                errs.append((rel_err(conv.bias.grad, g.sum(dim=(0, 1, 2)))[1], name))
+        return max(errs), len(self.convs)
 
 
-def compare_train_step(dev: str = "cuda"):
-    """Phase 8: one train step (make_train_fns: train-mode BN, weighted
-    Dice+BCE, backward, Adam) of ACC_UNet (n_filts=32, b2, seeded) on the GPU
-    in fp32 (kernels), held against the same step on the CPU in float64
-    (plain versions), with the CPU's fp32 step beside it as the control:
-      * the loss to TRAIN_TOL, relative;
-      * every BN running statistic to TRAIN_TOL of its own scale
-        (bn_stat_err);
-      * every depthwise weight gradient of the GPU step, per parameter, to
-        FP32_TOL of the plain wgrad of that step's own x and g (DepthwiseTaps):
+def acc_unet():
+    from accunet_tpu_torch.models import ACC_UNet, init_parameters
+
+    return init_parameters(ACC_UNet(3, 1, NF), torch.Generator().manual_seed(0))
+
+
+def compare_train_step(make_model=acc_unet, b=2, hw=TRAIN_CMP_HW, tol=TRAIN_TOL,
+                       dev: str = "cuda"):
+    """Phases 8 and 22: one train step (make_train_fns: train-mode BN,
+    weighted Dice+BCE, backward, Adam) of a seeded model (ACC_UNet
+    n_filts=32 at b2 64x64; UNext at b8 224x224) on the GPU in fp32
+    (kernels), held against the same step on the CPU in float64 (plain
+    versions), with the CPU's fp32 step beside it as the control:
+      * the loss to `tol`, relative;
+      * every BN running statistic to `tol` of its own scale (bn_stat_err);
+      * every depthwise weight (and bias) gradient of the GPU step, per
+        parameter, to FP32_TOL of the plain wgrad of that step's own x and g
+        (DepthwiseTaps):
         the wgrad kernel feeds no activation, so this holds it in the step
         exactly, however the step's rounding went;
       * the gradients as a whole only coarsely (within twice the control's
-        gap of the largest gradient, or TRAIN_TOL): at random init train-mode
-        BN amplifies the gradients toward the input, and a LeakyReLU input
-        within rounding of 0 takes the other slope, so one step's fp32 and
-        float64 gradients differ by about a tenth of the largest gradient on
-        either device (PERF.md section 6)."""
-    from accunet_tpu_torch.models import ACC_UNet, init_parameters
+        gap of the largest gradient, or `tol`): at random init ACC_UNet's
+        train-mode BN amplifies the gradients toward the input, and a
+        LeakyReLU input within rounding of 0 takes the other slope, so one
+        step's fp32 and float64 gradients differ by about a tenth of the
+        largest gradient on either device (PERF.md section 6).
+    `tol` is TRAIN_TOL (1e-3) for ACC_UNet and UNEXT_TRAIN_TOL (1e-4) for
+    UNext, whose step is far better conditioned: on the H100 its loss,
+    BN statistics and gradients came within 0, 3.8e-6 and 1.6e-5 of the
+    float64 step (the CPU's fp32 control: 1.3e-5, 3.1e-5)."""
     from accunet_tpu_torch.train.engine import make_train_fns
 
-    base = init_parameters(ACC_UNet(3, 1, NF), torch.Generator().manual_seed(0))
-    init = {n: b.double() for n, b in base.named_buffers() if "running" in n}
+    base = make_model()
+    init = {n: t.double() for n, t in base.named_buffers() if "running" in n}
     rs = np.random.default_rng(4)
-    x = torch.from_numpy(rs.random((2, TRAIN_CMP_HW, TRAIN_CMP_HW, 3), dtype=np.float32))
-    mask = torch.from_numpy((rs.random((2, TRAIN_CMP_HW, TRAIN_CMP_HW, 1)) > 0.5)
-                            .astype(np.float32))
+    x = torch.from_numpy(rs.random((b, hw, hw, 3), dtype=np.float32))
+    mask = torch.from_numpy((rs.random((b, hw, hw, 1)) > 0.5).astype(np.float32))
     res = {}
     for tag, d, dt in (("gpu", dev, torch.float32), ("cpu", "cpu", torch.float32),
                        ("cpu64", "cpu", torch.float64)):
@@ -621,40 +678,41 @@ def compare_train_step(dev: str = "cuda"):
         f"BN statistics {out['bn_stats_gpu']:.3e} at {out['bn_worst_gpu']} "
         f"({out['bn_stats_cpu']:.3e} at {out['bn_worst_cpu']}); gradients over the largest "
         f"{out['grad_gap_gpu']:.3e} ({out['grad_gap_cpu']:.3e}). {n_dw} depthwise weight "
-        f"gradients vs plain wgrad of the step's x, g: rel {dw_err[0]:.3e} at {dw_err[1]}")
-    if (out["loss_rel"] > TRAIN_TOL or out["bn_stats_gpu"] > TRAIN_TOL
-            or out["dw_vs_plain"] > FP32_TOL
-            or out["grad_gap_gpu"] > max(2 * out["grad_gap_cpu"], TRAIN_TOL)):
+        f"gradients (and DWConv bias gradients) vs plain wgrad of the step's x, g: rel "
+        f"{dw_err[0]:.3e} at {dw_err[1]}")
+    if (out["loss_rel"] > tol or out["bn_stats_gpu"] > tol or out["dw_vs_plain"] > FP32_TOL
+            or out["grad_gap_gpu"] > max(2 * out["grad_gap_cpu"], tol)):
         raise SmokeError("the train step on the GPU disagrees with the float64 CPU step")
     return out
 
 
-def time_train_step():
-    """Phase 9b: ACC_UNet b8 224x224 fp32 train step (forward, loss,
-    backward, Adam), 10 steps after 3 warm-up, and its peak memory."""
-    from accunet_tpu_torch.models import ACC_UNet, init_parameters
-    from accunet_tpu_torch.ops.kernels.dwconv2d import dwconv2d_wgrad
-    from accunet_tpu_torch.ops.kernels.hanc_mix import hanc_mix
+def time_train_step(model, label="ACC_UNet", counters=None):
+    """Phases 9b and 24: the b8 224x224 fp32 train step (forward, weighted
+    Dice+BCE, backward, Adam) of a copy of `model` on the card, 10 steps
+    after 3 warm-up, its peak memory and the launches per step of each
+    kernel in `counters`."""
     from accunet_tpu_torch.train.engine import make_train_fns
 
-    model = init_parameters(ACC_UNet(3, 1, NF), torch.Generator().manual_seed(0)).cuda()
-    fns = make_train_fns(model)
+    counters = counters or {}
+    fns = make_train_fns(copy.deepcopy(model).cuda())
     g = torch.Generator("cuda").manual_seed(6)
     batch = {"image": torch.rand(B, HW, HW, 3, generator=g, device="cuda"),
              "mask": (torch.rand(B, HW, HW, 1, generator=g, device="cuda") > 0.5).float()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    counts = (dwconv2d_wgrad.launches, hanc_mix.launches)
+    counts = {k: fn.launches for k, fn in counters.items()}
     ms = time_ms(lambda: fns.train_step(fns.state, batch), iters=10, warmup=3)
-    per_step = ((dwconv2d_wgrad.launches - counts[0]) / 13, (hanc_mix.launches - counts[1]) / 13)
+    per_step = {k: (fn.launches - counts[k]) / 13 for k, fn in counters.items()}
     _, stats = fns.train_step(fns.state, batch)
     if not bool(torch.isfinite(stats["loss"])):
-        raise SmokeError("non-finite loss in the timed train step")
+        raise SmokeError(f"non-finite loss in the timed {label} train step")
     out = {"ms_per_step": ms, "img_per_s": B * 1e3 / ms,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
-    log(f"  ACC_UNet b{B} {HW}x{HW} fp32 train step: {ms:.3f} ms/step, {out['img_per_s']:.1f} "
-        f"img/s, peak {out['peak_mem_gib']:.2f} GiB; per step dwconv2d_wgrad {per_step[0]:g}, "
-        f"hanc_mix {per_step[1]:g}")
+    log(f"  {label} b{B} {HW}x{HW} fp32 train step: {ms:.3f} ms/step, {out['img_per_s']:.1f} "
+        f"img/s, peak {out['peak_mem_gib']:.2f} GiB; per step "
+        + ", ".join(f"{k} {n:g}" for k, n in per_step.items()))
+    del fns
+    torch.cuda.empty_cache()
     return out
 
 
@@ -691,10 +749,10 @@ def seeded_bns(module, seed):
 TAPS = ("cnv12", "cnv22", "rspth1", "rspth2", "cnv72", "cnv82", "cnv92")
 
 
-def forward_with_taps(model, x):
+def forward_with_taps(model, x, taps=TAPS):
     feats = {}
     hooks = [getattr(model, n).register_forward_hook(
-        lambda mod, inp, out, n=n: feats.__setitem__(n, out.float().cpu())) for n in TAPS]
+        lambda mod, inp, out, n=n: feats.__setitem__(n, out.float().cpu())) for n in taps]
     try:
         out = model(x).cpu()
     finally:
@@ -703,35 +761,44 @@ def forward_with_taps(model, x):
     return out, feats
 
 
+def compare_on_cpu(model, label, hw, taps, seed):
+    """Phases 5, 22 and 23: `model` b1 hw x hw fp32 on the GPU (kernels) vs
+    the CPU (plain versions): the logits and the `taps` module outputs rel
+    <= MODEL_TOL (the logits of a random model are small, the features
+    O(0.1-1)), the sigmoid probabilities abs <= MODEL_TOL."""
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal((1, hw, hw, 3),
+                                                                     dtype=np.float32))
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        want, want_f = forward_with_taps(model, x, taps)
+        cpu_s = time.perf_counter() - t0
+        got, got_f = forward_with_taps(copy.deepcopy(model).cuda(), x.cuda(), taps)
+    errs = {n: rel_err(got_f[n], want_f[n])[1] for n in taps}
+    abs_err, errs["logits"] = rel_err(got, want)
+    errs["probabilities (abs)"] = float((torch.sigmoid(got) - torch.sigmoid(want)).abs().max())
+    worst = max(errs.values())
+    log(f"  {label} b1 {hw}x{hw}, GPU vs CPU: logits max_abs_err {abs_err:.3e} (|logit| <= "
+        f"{float(want.abs().max()):.3g}); rel " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (tol {MODEL_TOL:g}); CPU forward {cpu_s:.1f} s")
+    if worst > MODEL_TOL:
+        raise SmokeError(f"{label} on the GPU disagrees with the CPU")
+    return worst
+
+
 def compare_model():
     """Phase 5: ACC_UNet fp32, GPU (kernels) vs CPU (plain versions), b1."""
     model = seeded_model()
-    x = torch.from_numpy(np.random.default_rng(1).standard_normal((1, HW, HW, 3), dtype=np.float32))
-    with torch.inference_mode():
-        t0 = time.perf_counter()
-        want, want_f = forward_with_taps(model, x)
-        cpu_s = time.perf_counter() - t0
-        got, got_f = forward_with_taps(copy.deepcopy(model).cuda(), x.cuda())
-    worst = 0.0
-    for n in TAPS:
-        abs_err, rel = rel_err(got_f[n], want_f[n])
-        worst = max(worst, rel)
-        log(f"  {n:7s} {tuple(want_f[n].shape)}: max_abs_err {abs_err:.3e} (rel {rel:.3e})")
-    abs_err, rel = rel_err(got, want)
-    prob_err = float((torch.sigmoid(got) - torch.sigmoid(want)).abs().max())
-    log(f"  logits: max_abs_err {abs_err:.3e} (rel {rel:.3e}, |logit| <= "
-        f"{float(want.abs().max()):.3g}); probabilities max_abs_err {prob_err:.3e}; "
-        f"CPU forward {cpu_s:.1f} s")
-    if max(worst, rel, prob_err) > MODEL_TOL:
-        raise SmokeError("whole model on the GPU disagrees with the CPU")
+    compare_on_cpu(model, "ACC_UNet", HW, TAPS, 1)
     return model
 
 
-def time_model(model):
-    """Phase 9a: ACC_UNet b8 224x224 inference, fp32 and bf16."""
-    x = torch.randn(B, HW, HW, 3, device="cuda", generator=torch.Generator("cuda").manual_seed(2))
+def time_model(model, label="ACC_UNet", batch=B, dtypes=(torch.float32, torch.bfloat16)):
+    """Phases 9a and 24: inference of `model` at 224x224 (ACC_UNet and
+    UNext b8 fp32 and bf16, UNext b1024 bf16, UNext_CMRF b8 fp32)."""
+    x = torch.randn(batch, HW, HW, 3, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(2))
     rates = {}
-    for dt in (torch.float32, torch.bfloat16):
+    for dt in dtypes:
         m = copy.deepcopy(model).to(device="cuda", dtype=dt)
         torch.cuda.reset_peak_memory_stats()
         with torch.inference_mode():
@@ -740,11 +807,12 @@ def time_model(model):
                 raise SmokeError(f"non-finite model output in {dt}")
             ms = time_ms(lambda: m(x), iters=10, warmup=3)
         name = str(dt)[6:]
-        rates[name] = {"ms_per_batch": ms, "img_per_s": B * 1e3 / ms,
+        rates[name] = {"ms_per_batch": ms, "img_per_s": batch * 1e3 / ms,
                        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
-        log(f"  ACC_UNet b{B} {HW}x{HW} {name}: {ms:.3f} ms/batch, {B * 1e3 / ms:.1f} img/s, "
-            f"peak {rates[name]['peak_mem_gib']:.2f} GiB")
-        del m
+        log(f"  {label} b{batch} {HW}x{HW} {name}: {ms:.3f} ms/batch, {batch * 1e3 / ms:.1f} "
+            f"img/s, peak {rates[name]['peak_mem_gib']:.2f} GiB")
+        del m, out
+        torch.cuda.empty_cache()
     return rates
 
 
@@ -1049,9 +1117,7 @@ def segmamba_train_launches(steps, val_batches):
     2 branches x 4 stages) and their 16 fused backwards; per validation
     forward: 16 fused forwards; nothing else of the port's kernels (the
     standalone scans, linear_scan and its reverse, are on no path)."""
-    zero = dict.fromkeys(("hanc_block", "respath_level", "hanc_mix", "expand_dw",
-                          "dwconv2d_wgrad", "linear_scan", "linear_scan_reverse",
-                          "linear_scan_staged"), 0)
+    zero = dict.fromkeys(KERNELS, 0)
     return {"train_steps": {**zero, "selective_scan_fwd": SCANS_PER_FORWARD * steps,
                             "selective_scan_bwd": SCANS_PER_FORWARD * steps},
             "validation": {**zero, "selective_scan_fwd": SCANS_PER_FORWARD * val_batches,
@@ -1343,6 +1409,73 @@ def time_w_model(model):
     return rates
 
 
+# ------------------------------------------------------------------ UNeXt slice
+# UNext at full width (stem 16/32/128, tokens 128/160/256), b8 224x224: the
+# depthwise convs of its four ShiftedBlocks (3x3, C = the block's width) take
+# their weight gradient from dwconv2d_wgrad, the only port kernel on its path
+UNEXT_DW_SHAPES = (("block1_0", HW // 16, 160), ("block2_0", HW // 32, 256),
+                   ("dblock1_0", HW // 16, 160), ("dblock2_0", HW // 8, 128))
+UNEXT_TAPS = ("ebn3", "norm3", "norm4", "dnorm3", "dnorm4")
+# the four distinct forwards of the seven ported UNext_CMRF names (_PP and
+# _hd are UNext_CMRF's, _enc_dec_MLFC joins _enc_dec's decoder to the MLFC)
+CMRF_TOPOLOGIES = ("UNext_CMRF", "UNext_CMRF_enc_dec", "UNext_CMRF_enc_MLFC",
+                   "UNext_CMRF_dense_skip")
+CMRF_TAPS = ("encoder3", "norm3", "norm4", "dnorm4")
+CMRF_CMP_HW = 64
+UNEXT_TRAIN_TOL = 1e-4  # compare_train_step says how it was found
+HEADLINE_B = 1024  # the JAX bench's headline batch (bench.py:7-14)
+
+
+def unext_wgrad_cases(dev):
+    """Phase 19 and 24 cases: dwconv2d_wgrad at UNext b8 224x224's four
+    ShiftedBlock shapes (x and g ~ N(0, 1))."""
+    g = torch.Generator(device=dev).manual_seed(19)
+
+    def cases(dt):
+        return [wgrad_case(f"unext.{name}",
+                           *(torch.randn(B, hw, hw, c, generator=g, device=dev).to(dt)
+                             for _ in range(2)))
+                for name, hw, c in UNEXT_DW_SHAPES]
+
+    return cases
+
+
+def unext_train_launches(steps, val_batches):
+    """Per UNext train step: one dwconv2d_wgrad in each ShiftedBlock's
+    depthwise backward (4); per validation forward nothing (the depthwise
+    forward is cuDNN's grouped conv, as it is XLA's in JAX)."""
+    zero = dict.fromkeys(KERNELS, 0)
+    return {"train_steps": {**zero, "dwconv2d_wgrad": 4 * steps}, "validation": zero}
+
+
+def seeded_unext(name="UNext", **kw):
+    """A UNeXt-family model (3 channels, 1 class, logits) with the JAX
+    initialisers and its BNs moved off their init values, eval mode, CPU."""
+    from accunet_tpu_torch.models import build, init_parameters
+
+    model = init_parameters(build(name, n_channels=3, n_classes=1, final_sigmoid=False, **kw),
+                            torch.Generator().manual_seed(0))
+    return seeded_bns(model, 20).eval()
+
+
+class Phases:
+    """Logs each phase's title and, when the next begins (or `end()`), the
+    seconds it took."""
+
+    def __init__(self):
+        self.t0 = None
+
+    def __call__(self, title: str) -> None:
+        self.end()
+        self.t0 = time.perf_counter()
+        log(title)
+
+    def end(self) -> None:
+        if self.t0 is not None:
+            log(f"  ({time.perf_counter() - self.t0:.1f} s)")
+            self.t0 = None
+
+
 def ptxas_summary(log_text: str) -> str:
     regs = [int(m) for m in re.findall(r"Used (\d+) registers", log_text)]
     spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", log_text)]
@@ -1373,8 +1506,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     dev = torch.device("cuda", 0)
+    phase = Phases()
 
-    log("[1] device")
+    phase("[1] device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
@@ -1382,57 +1516,58 @@ def main() -> int:
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}, "
         f"{torch.cuda.device_count()} device(s)")
 
-    log("[2] build")
+    phase("[2] build")
     t0 = time.perf_counter()
     _build.load_library()
     build_log = _build.build_dir() / "build.log"
     log(f"  built in {time.perf_counter() - t0:.1f} s into {_build.build_dir()}; "
         + (ptxas_summary(build_log.read_text()) if build_log.exists() else "no build log"))
 
-    log("[3] kernels vs plain versions (main-path shapes, b8)")
+    phase("[3] kernels vs plain versions (main-path shapes, b8)")
     cases = kernel_cases(dev)
     worst_bf16 = {}
     worst = check_kernels(cases, worst_bf16)
 
-    log("[4] ACC_UNet through accunet_tpu_torch.cli.eval on cuda")
+    phase("[4] ACC_UNet through accunet_tpu_torch.cli.eval on cuda")
     counters = {"hanc_block": hanc_block, "respath_level": respath_level, "hanc_mix": hanc_mix,
                 "expand_dw": expand_dw}
     launches = {"eval_cli": run_eval_cli(counters)}
 
-    log("[5] whole model, GPU vs CPU")
+    phase("[5] whole model, GPU vs CPU")
     model = compare_model()
 
-    log("[6] train-path autograd functions vs plain versions (main-path shapes, b8)")
+    phase("[6] train-path autograd functions vs plain versions (main-path shapes, b8)")
     check_autograd_fns(dev)
 
-    log("[7] ACC_UNet through accunet_tpu_torch.cli.train on cuda, then --resume auto")
+    phase("[7] ACC_UNet through accunet_tpu_torch.cli.train on cuda, then --resume auto")
     counters["dwconv2d_wgrad"] = dwconv2d_wgrad
     train_launches = run_train_cli(counters, "ACC_UNet", acc_train_launches)
     launches["train_cli_steps"] = train_launches["train_steps"]
     launches["train_cli_validation"] = train_launches["validation"]
 
-    log(f"[8] one train step, GPU vs CPU ({TRAIN_CMP_HW}x{TRAIN_CMP_HW}, b2, fp32, TF32 off)")
+    phase(f"[8] one train step, GPU vs CPU ({TRAIN_CMP_HW}x{TRAIN_CMP_HW}, b2, fp32, TF32 off)")
     train_cmp = compare_train_step()
 
-    log("[9] timing")
+    phase("[9] timing")
     rates = time_model(model)
-    train_rate = time_train_step()
+    train_rate = time_train_step(acc_unet(), "ACC_UNet",
+                                 {"dwconv2d_wgrad": dwconv2d_wgrad, "hanc_mix": hanc_mix})
     times = time_kernels(cases)
     log("  " + json.dumps({"card": card, "acc_unet": rates, "train_step_fp32": train_rate,
                            "train_step_gpu_vs_cpu": train_cmp}))
 
-    log("[10] scan kernels vs plain versions (Segmamba's stage shapes, b8)")
+    phase("[10] scan kernels vs plain versions (Segmamba's stage shapes, b8)")
     worst.update(check_scan_kernels())
     worst.update(check_fused_scan())
 
-    log("[11] ChunkedLinearScanFn and SelectiveScanFn gradients vs autograd of the plain versions")
+    phase("[11] ChunkedLinearScanFn and SelectiveScanFn gradients vs autograd of the plain versions")
     check_scan_autograd()
 
-    log(f"[12] Segmamba, full width: fused selective scan vs plain (b{B} {HW}x{HW}), GPU vs CPU")
+    phase(f"[12] Segmamba, full width: fused selective scan vs plain (b{B} {HW}x{HW}), GPU vs CPU")
     sm_model = segmamba_model()
     sm_cmp = compare_segmamba(sm_model)
 
-    log("[13] Segmamba through accunet_tpu_torch.cli.train on cuda, then --resume auto")
+    phase("[13] Segmamba through accunet_tpu_torch.cli.train on cuda, then --resume auto")
     counters.update(linear_scan=linear_scan, linear_scan_reverse=linear_scan_reverse,
                     linear_scan_staged=dma_chunked_scan, selective_scan_fwd=selective_scan_fwd,
                     selective_scan_bwd=selective_scan_bwd)
@@ -1440,37 +1575,74 @@ def main() -> int:
     launches["segmamba_train_cli_steps"] = sm_launches["train_steps"]
     launches["segmamba_train_cli_validation"] = sm_launches["validation"]
 
-    log("[14] Segmamba timing")
+    phase("[14] Segmamba timing")
     sm_rates = time_segmamba(sm_model)
     times.update({(k, c, "float32"): v for (k, c), v in time_scan_kernels().items()})
     times.update({(k, c, "float32"): v for (k, c), v in time_fused_scan().items()})
     log("  " + json.dumps({"card": card, "segmamba": sm_rates, "segmamba_checks": sm_cmp}))
 
-    log("[15] expand_dw vs its plain version (cnv72 of ACC_UNet b8 224x224 and of ACC_UNet_W b2 "
+    phase("[15] expand_dw vs its plain version (cnv72 of ACC_UNet b8 224x224 and of ACC_UNet_W b2 "
         "512x512, a ragged shape) and vs the unfused front half")
     ed_cases = expand_dw_cases(dev)
     worst.update(check_kernels(ed_cases, worst_bf16))
     check_unfused_front(ed_cases)
 
-    log(f"[16] ACC_UNet_W ({W_CLASSES} classes, {W_HW}x{W_HW}, b{W_B}, hybrid on) through "
+    phase(f"[16] ACC_UNet_W ({W_CLASSES} classes, {W_HW}x{W_HW}, b{W_B}, hybrid on) through "
         "accunet_tpu_torch.cli.eval on cuda")
     launches["eval_cli_w"] = run_eval_cli(
         counters, "ACC_UNet_W", W_CLASSES, W_HW, W_B, 2 * W_B, "{'hybrid_expand_dw': True}",
         {**EVAL_LAUNCHES, "expand_dw": 1})
 
-    log(f"[17] ACC_UNet_W mc: hybrid on vs off (b{W_B} {W_HW}x{W_HW}), hybrid_e_min=96 GPU vs CPU")
+    phase(f"[17] ACC_UNet_W mc: hybrid on vs off (b{W_B} {W_HW}x{W_HW}), hybrid_e_min=96 GPU vs CPU")
     w_model, w_cmp = compare_w_hybrid()
 
-    log("[18] ACC_UNet_W timing, expand_dw timing")
+    phase("[18] ACC_UNet_W timing, expand_dw timing")
     w_rates = time_w_model(w_model)
     times.update(time_kernels(ed_cases))
     log("  " + json.dumps({"card": card, "acc_unet_w_mc_512_b2": w_rates, "w_checks": w_cmp}))
+
+    phase("[19] dwconv2d_wgrad vs its plain version at UNext b8 224x224's ShiftedBlock shapes")
+    un_cases = unext_wgrad_cases(dev)
+    for kname, err in check_kernels(un_cases, worst_bf16).items():
+        worst[kname] = max(worst[kname], err)
+
+    phase("[20] UNext through accunet_tpu_torch.cli.eval on cuda (no kernel on its path)")
+    launches["unext_eval_cli"] = run_eval_cli(counters, "UNext", per_forward={})
+
+    phase("[21] UNext through accunet_tpu_torch.cli.train on cuda, then --resume auto")
+    un_launches = run_train_cli(counters, "UNext", unext_train_launches)
+    launches["unext_train_cli_steps"] = un_launches["train_steps"]
+    launches["unext_train_cli_validation"] = un_launches["validation"]
+
+    phase(f"[22] UNext GPU vs CPU: b1 {HW}x{HW} forward; one b{B} {HW}x{HW} train step vs float64")
+    unext = seeded_unext()
+    un_checks = {"gpu_vs_cpu_rel": compare_on_cpu(unext, "UNext", HW, UNEXT_TAPS, 22),
+                 "train_step": compare_train_step(seeded_unext, B, HW, UNEXT_TRAIN_TOL)}
+
+    phase(f"[23] UNext_CMRF topologies, b1 {CMRF_CMP_HW}x{CMRF_CMP_HW}, GPU vs CPU")
+    for name in CMRF_TOPOLOGIES:
+        un_checks[f"{name}_gpu_vs_cpu_rel"] = compare_on_cpu(
+            seeded_unext(name), name, CMRF_CMP_HW, CMRF_TAPS, 23)
+
+    phase("[24] UNeXt timing, dwconv2d_wgrad at its shapes")
+    un_rates = {"unext": time_model(unext, "UNext")}
+    un_rates["unext_b1024"] = time_model(unext, "UNext", HEADLINE_B, (torch.bfloat16,))
+    un_rates["unext_train_step_fp32"] = time_train_step(unext, "UNext",
+                                                       {"dwconv2d_wgrad": dwconv2d_wgrad})
+    cmrf = seeded_unext("UNext_CMRF")
+    un_rates["unext_cmrf"] = time_model(cmrf, "UNext_CMRF", dtypes=(torch.float32,))
+    un_rates["unext_cmrf_train_step_fp32"] = time_train_step(cmrf, "UNext_CMRF",
+                                                            {"dwconv2d_wgrad": dwconv2d_wgrad})
+    times.update(time_kernels(un_cases))
+    phase.end()
+    log("  " + json.dumps({"card": card, **un_rates, "unext_checks": un_checks}))
 
     # the shapes whose times the kernels line lists per kernel
     by_shape = {"hanc_block": ("cnv12", "cnv22", "cnv81", "cnv91"),
                 "respath_level": ("rspth1.level0", "rspth1.level1", "rspth2.level1"),
                 "hanc_mix": ("cnv11", "cnv31", "cnv61", "cnv72"),
-                "dwconv2d_wgrad": ("cnv12", "cnv52", "cnv61", "cnv72")}
+                "dwconv2d_wgrad": ("cnv12", "cnv52", "cnv61", "cnv72")
+                + tuple(f"unext.{name}" for name, *_ in UNEXT_DW_SHAPES)}
     timed_case = {"hanc_block": "cnv91", "respath_level": "rspth1.level1", "hanc_mix": "cnv72",
                   "dwconv2d_wgrad": "cnv72", "linear_scan": "stage0",
                   "linear_scan_staged": "stage0", "expand_dw": "cnv72.w_b2_512",

@@ -9,7 +9,8 @@ the port.
 On one CUDA card, at chip_smoke.py's shapes (ACC_UNet, n_filts=32, b8
 224x224; expand_dw also at ACC_UNet_W b2 512x512), in fp32 (TF32 off) and
 bf16:
-  * dwconv2d_wgrad at cnv12, cnv52, cnv61 and cnv72: the kernel for dw alone
+  * dwconv2d_wgrad at cnv12, cnv52, cnv61 and cnv72, and at UNext b8
+    224x224's ShiftedBlock maps (14x14x160, 7x7x256, 28x28x128): the kernel for dw alone
     and, where the tree's wrapper takes `bias_grad`, for dw and db; cuDNN's
     weight-only `aten.convolution_backward` on the same inputs; the error of
     dw against the plain version (max abs error / max |plain|);
@@ -67,7 +68,8 @@ B, HW, NF = 8, 224, 32
 KERNELS = ("dwconv2d_wgrad", "hanc_block", "respath_level", "expand_dw", "selective_scan")
 # name, map side, C
 WGRAD = [("cnv12", HW, 3 * NF), ("cnv52", HW // 16, 48 * NF), ("cnv61", HW // 8, 48 * NF),
-         ("cnv72", HW // 4, 136 * NF)]
+         ("cnv72", HW // 4, 136 * NF), ("unext.block1_0", HW // 16, 160),
+         ("unext.block2_0", HW // 32, 256), ("unext.dblock2_0", HW // 8, 128)]
 # name, map side, cin, E, cout, chained
 BLOCKS = [("cnv12", HW, NF, 3 * NF, NF, False), ("cnv22", HW // 2, 2 * NF, 6 * NF, 2 * NF, True),
           ("cnv81", HW // 2, 4 * NF, 12 * NF, 2 * NF, False),
