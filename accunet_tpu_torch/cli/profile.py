@@ -3,6 +3,8 @@
     python -m accunet_tpu_torch.cli.profile --model ACC_UNet --img 224 --batch 8 \
         [--dtype bfloat16] [--steps 5] [--device cuda] [--train]
     python -m accunet_tpu_torch.cli.profile --model Segmamba [--train]
+    python -m accunet_tpu_torch.cli.profile --n-classes 2 [--train] \
+        --model Segmamba_hybrid_gsc_KAN_PE_ds_CrossAttn_HSLCA_SpatialMamba_no_text
     python -m accunet_tpu_torch.cli.profile --model UNext [--dtype bfloat16] [--train]
     python -m accunet_tpu_torch.cli.profile --model ACC_UNet_W --img 512 --batch 2 \
         [--model-kwargs "{'hybrid_expand_dw': True}"]
@@ -10,7 +12,10 @@
 ACC-UNet models are built with n_classes=1, as the JAX profile CLI does
 (accunet_tpu/cli/profile.py:42): for a multi-class configuration the 1x1
 head has 1 output channel instead of n_classes+1 (4 for 3 classes), which is
-noise beside the rest of the model.
+noise beside the rest of the model. SegMamba models are built with
+out_chans=--n-classes (1 by default), as the train CLIs build them; with
+--n-classes > 1 the train step takes multiclass_dice_ce on class ids
+0..n_classes (a deep-supervision model's binary loss raises, as in JAX).
 
 Runs the model with seeded random weights on one CUDA device, in eval mode
 (a forward per step) or with --train a train step (train-mode forward, the
@@ -40,6 +45,8 @@ from collections import defaultdict
 
 # device-kernel name fragment -> family (first match wins)
 FAMILIES = (
+    ("selective_scan_rh_fwd", "selective_scan_rh_fwd"),
+    ("selective_scan_rh_bwd", "selective_scan_rh_bwd"),  # (its reduce launch is the next one's)
     ("selective_scan_fwd_kernel", "selective_scan_fwd"),
     ("selective_scan_bwd", "selective_scan_bwd"),  # the kernel and its reduce launch
     ("linear_scan_kernel<true>", "linear_scan_reverse"),
@@ -98,6 +105,8 @@ def main(argv=None):
     ap.add_argument("--model-kwargs", default=None,
                     help="python dict literal of extra model kwargs")
     ap.add_argument("--device", default="cuda", help="CUDA device, e.g. cuda, cuda:1")
+    ap.add_argument("--n-classes", type=int, default=1,
+                    help="SegMamba models' head width; > 1 trains with multiclass_dice_ce")
     ap.add_argument("--train", action="store_true",
                     help="profile a train step instead of a forward")
     args = ap.parse_args(argv)
@@ -115,8 +124,11 @@ def main(argv=None):
     from accunet_tpu_torch.ops.kernels.respath import respath_level
     from accunet_tpu_torch.ops.kernels.scan import linear_scan, linear_scan_reverse
     from accunet_tpu_torch.ops.kernels.selective_scan import (selective_scan_bwd,
-                                                              selective_scan_fwd)
+                                                              selective_scan_fwd,
+                                                              selective_scan_rh_bwd,
+                                                              selective_scan_rh_fwd)
     from accunet_tpu_torch.train import losses as L
+    from accunet_tpu_torch.train import metrics as M
 
     device = torch.device(args.device)
     if device.type != "cuda" or not torch.cuda.is_available():
@@ -128,7 +140,7 @@ def main(argv=None):
     dtype = getattr(torch, args.dtype)
     kwargs = ast.literal_eval(args.model_kwargs) if args.model_kwargs else {}
     if args.model.startswith("Segmamba"):  # SegMamba builders, as in JAX
-        model = build_model(args.model, in_chans=3, out_chans=1, **kwargs)
+        model = build_model(args.model, in_chans=3, out_chans=args.n_classes, **kwargs)
     else:
         model = build_model(args.model, n_channels=3, n_classes=1, **kwargs)
     init_parameters(model, torch.Generator().manual_seed(0))
@@ -143,9 +155,15 @@ def main(argv=None):
     if args.train:
         from accunet_tpu_torch.train.engine import make_train_fns
 
-        fns = make_train_fns(model, loss_fn=L.LOSSES[get_config(args.model).train.loss])
-        mask = (torch.rand(args.batch, args.img, args.img, 1, device=device, generator=gen)
-                > 0.5).float()
+        if args.n_classes > 1:
+            fns = make_train_fns(model, loss_fn=L.multiclass_dice_ce,
+                                 dice_show=L.multiclass_dice_show, iou_fn=M.multiclass_batch_iou)
+            mask = torch.randint(0, args.n_classes + 1, (args.batch, args.img, args.img, 1),
+                                 device=device, generator=gen).float()
+        else:
+            fns = make_train_fns(model, loss_fn=L.LOSSES[get_config(args.model).train.loss])
+            mask = (torch.rand(args.batch, args.img, args.img, 1, device=device, generator=gen)
+                    > 0.5).float()
 
         def step():
             fns.train_step(fns.state, {"image": x, "mask": mask})
@@ -185,7 +203,9 @@ def main(argv=None):
                     "hanc_mix": hanc_mix, "expand_dw": expand_dw, "dwconv2d_wgrad": dwconv2d_wgrad,
                     "linear_scan": linear_scan, "linear_scan_reverse": linear_scan_reverse,
                     "selective_scan_fwd": selective_scan_fwd,
-                    "selective_scan_bwd": selective_scan_bwd}
+                    "selective_scan_bwd": selective_scan_bwd,
+                    "selective_scan_rh_fwd": selective_scan_rh_fwd,
+                    "selective_scan_rh_bwd": selective_scan_rh_bwd}
         for fn in counters.values():
             fn.launches = 0
         step()

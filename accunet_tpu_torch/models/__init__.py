@@ -1,7 +1,8 @@
 """Model registry of the port, under the JAX package's registry names
 (accunet_tpu/models/__init__.py): the ACC-UNet family, the SegMamba
-baseline, UNeXt and the UNext_CMRF family (whose unported variants raise
-NotImplementedError when built)."""
+baseline and its Spatial-Mamba variant without text, UNeXt, the UNext_CMRF
+family (whose unported variants raise NotImplementedError when built) and
+the SpatialMamba classifier."""
 
 from __future__ import annotations
 
@@ -18,19 +19,24 @@ from accunet_tpu_torch.models.acc_unet import (
     ACC_UNet_W,
     ACCUNet,
 )
+from accunet_tpu_torch.models.medmamba import Backbone_SpatialMamba, SpatialMamba
+from accunet_tpu_torch.models.segmamba import VARIANTS as _SEGMAMBA_VARIANTS
 from accunet_tpu_torch.models.segmamba import SegMamba, build_segmamba
 from accunet_tpu_torch.models.unext import UNext, UNext_S
 from accunet_tpu_torch.models.unext_cmrf import VARIANTS as _CMRF_VARIANTS
 from accunet_tpu_torch.models.unext_cmrf import build_unext_cmrf
 from accunet_tpu_torch.nn.acc_blocks import MLFC
-from accunet_tpu_torch.nn.ssm import BiMamba
+from accunet_tpu_torch.nn.kan import FractionalJacobiNeuralBlock, KANLinear
+from accunet_tpu_torch.nn.ssm import BiMamba, StateFusion, StructureAwareSSM
 
 registry: Dict[str, Callable] = {
     "ACC_UNet": ACC_UNet,
     "ACC_UNet_Lite": ACC_UNet_Lite,
     "ACC_UNet_W": ACC_UNet_W,
     # SegMamba builders take in_chans/out_chans, as in JAX
-    "Segmamba": functools.partial(build_segmamba, "Segmamba"),
+    **{name: functools.partial(build_segmamba, name) for name in _SEGMAMBA_VARIANTS},
+    "SpatialMamba": SpatialMamba,
+    "Backbone_SpatialMamba": Backbone_SpatialMamba,
     "UNext": UNext,
     "UNeXt": UNext,  # the reference factory's spelling
     "UNext_S": UNext_S,
@@ -44,14 +50,31 @@ def build(name: str, **kwargs):
     return registry[name](**kwargs)
 
 
+def _lecun_normal(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    # flax lecun_normal: truncated normal, stddev corrected for the cut
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
+
+
+def _he_uniform(w: torch.Tensor, generator: torch.Generator) -> None:
+    # flax he_uniform on a raw (a, b) parameter: fan_in is its axis -2, a
+    limit = math.sqrt(6.0 / w.shape[-2])
+    nn.init.uniform_(w, -limit, limit, generator=generator)
+
+
 @torch.no_grad()
 def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded initialisation with the JAX package's initialisers: every conv
     (1-D and 2-D), transposed-conv and linear weight lecun-normal (truncated
     at 2 sigma), biases zero, BN scale one / shift zero / stats (0, 1),
     LayerNorm scale one / shift zero, the MLFC-W blend zero, and each
-    BiMamba's A_log = log(1..d_state), D = 1. Draws come from `generator` in
-    module order."""
+    BiMamba's A_log = log(1..d_state), D = 1. Spatial-Mamba's raw
+    parameters: A_logs = log(1..d_state), Ds = 1, dt_projs_bias =
+    log(expm1(0.01)), x_proj_weight and dt_projs_weight lecun-normal with
+    flax's fan-in of a raw parameter (its axis -2), StateFusion's kernels and
+    alpha one; KANLinear's base_weight and spline_scaler he-uniform (fan-in
+    axis -2 too), spline_weight normal(0.1 / grid_size); the FJNB alpha =
+    beta = 1, gamma = 0. Draws come from `generator` in module order."""
     for mod in model.modules():
         if isinstance(mod, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             w = mod.weight
@@ -59,11 +82,24 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 fan_in = w.shape[0] * w.shape[2] * w.shape[3]
             else:
                 fan_in = math.prod(w.shape[1:])
-            # flax lecun_normal: truncated normal, stddev corrected for the cut
-            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-            nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
+            _lecun_normal(w, fan_in, generator)
             if mod.bias is not None:
                 mod.bias.zero_()
+        elif isinstance(mod, StructureAwareSSM):
+            for w in (mod.x_proj_weight, mod.dt_projs_weight):
+                _lecun_normal(w, w.shape[-2], generator)
+            mod.reset_ssm_parameters()
+        elif isinstance(mod, StateFusion):
+            for w in (mod.kernel_3, mod.kernel_3_1, mod.kernel_3_2, mod.alpha):
+                w.fill_(1.0)
+        elif isinstance(mod, KANLinear):
+            _he_uniform(mod.base_weight, generator)
+            nn.init.normal_(mod.spline_weight, 0.0, 0.1 / mod.grid_size, generator=generator)
+            _he_uniform(mod.spline_scaler, generator)
+        elif isinstance(mod, FractionalJacobiNeuralBlock):
+            mod.alpha.fill_(1.0)
+            mod.beta.fill_(1.0)
+            mod.gamma.zero_()
         elif isinstance(mod, (nn.BatchNorm2d, nn.LayerNorm)):
             mod.reset_parameters()
         elif isinstance(mod, MLFC) and hasattr(mod, "W"):
@@ -73,6 +109,6 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
     return model
 
 
-__all__ = ["ACCUNet", "ACC_UNet", "ACC_UNet_Lite", "ACC_UNet_W", "SegMamba", "UNext",
-           "UNext_S", "build", "build_segmamba", "build_unext_cmrf", "init_parameters",
-           "registry"]
+__all__ = ["ACCUNet", "ACC_UNet", "ACC_UNet_Lite", "ACC_UNet_W", "Backbone_SpatialMamba",
+           "SegMamba", "SpatialMamba", "UNext", "UNext_S", "build", "build_segmamba",
+           "build_unext_cmrf", "init_parameters", "registry"]

@@ -1,22 +1,29 @@
-"""SegMamba, the reference's baseline (nets/segmamba.py), in torch.nn on NHWC
-tensors: counterpart of accunet_tpu/models/segmamba.py (`PlainMambaLayer`,
-`MlpChannel`, `MambaEncoder`, `SegMamba`, `VARIANTS`, `build_segmamba`).
+"""The SegMamba family in torch.nn on NHWC tensors: counterpart of
+accunet_tpu/models/segmamba.py (`GSC`, `PlainMambaLayer`, `MlpChannel`,
+`MambaEncoder`, `SegMamba`, `VARIANTS`, `build_segmamba`).
 
     encoder "vit": stem 7x7/2 conv, then per stage (IN + 2x2/2 conv from
-        stage 1 on) -> depths[i] PlainMambaLayers (token LayerNorm + BiMamba
-        + residual) -> IN + MlpChannel (1x1 conv, GELU, 1x1 conv)
+        stage 1 on) -> [GSC] -> depths[i] blocks: PlainMambaLayers (token
+        LayerNorm + BiMamba + residual; the baseline) or SpatialMambaBlocks
+        (block "spatial", or "spatial_kan" with the KAN FFN) -> [IN +
+        MlpChannel (1x1 conv, GELU, 1x1 conv)]
     UNETR decoder: encoder1..5 UnetrBasicBlocks on the input and the four
-        stage outputs, decoder5..2 UnetrUpBlocks, decoder1, UnetOutBlock
-    -> float32 logits (B, H, W, out_chans)
+        stage outputs, decoder5..2 UnetrUpBlocks, decoder1, [the FKAN final
+        refine over its tokens], UnetOutBlock
+    -> float32 logits (B, H, W, out_chans), or with deep supervision and
+       ds_in_output the tuple (main, ds1, ds2, ds3) of the main head and the
+       1x1 heads on decoder3, 4 and 5, resized bilinearly (align_corners
+       False) to the main head's size
 
-Every BiMamba runs two selective scans (forward and time-flipped), so a
-forward launches 2 * sum(depths) chunked linear-scan kernels, and a train
-step as many reverse ones.
+Every BiMamba runs two selective scans (forward and time-flipped) and every
+SpatialMambaBlock one return-hidden scan, each one fused kernel forward and
+one backward.
 
-Only the baseline is ported: block="plain", use_gsc=False, no text fusion,
-no final refine, no deep supervision. The other axes of the family (GSC,
-the hybrid and Spatial-Mamba blocks, text fusion, FKAN refine, deep
-supervision heads) raise NotImplementedError (ROADMAP Queue 1 item 6).
+The defaults are the baseline's (block "plain", no GSC, stage MLPs, no
+text fusion, refine or deep supervision); JAX's are the flagship's, so each
+VARIANTS entry here spells out every axis. Not ported yet, and raising
+NotImplementedError (ROADMAP Queue 1 item 6): text fusion, the hybrid
+TransformerMambaBlock (block "tmb") and the SimpleTokenMLP final refine.
 """
 
 from __future__ import annotations
@@ -27,14 +34,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from accunet_tpu_torch.nn.ssm import BiMamba
+from accunet_tpu_torch.nn.kan import FKANMLP
+from accunet_tpu_torch.nn.ssm import BiMamba, SpatialMambaBlock
 from accunet_tpu_torch.nn.unetr import (
     UnetOutBlock,
     UnetrBasicBlock,
     UnetrUpBlock,
     instance_norm,
 )
-from accunet_tpu_torch.ops.conv import conv1x1
+from accunet_tpu_torch.ops.conv import conv1x1, conv2d
+from accunet_tpu_torch.ops.resize import resize_bilinear
 
 _TODO = "not ported yet (ROADMAP Queue 1 item 6)"
 
@@ -42,6 +51,28 @@ _TODO = "not ported yet (ROADMAP Queue 1 item 6)"
 def _conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     """A strided, explicitly padded nn.Conv2d on an NHWC tensor."""
     return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+class GSC(nn.Module):
+    """Gated spatial conv block: x1 = relu(IN(proj2(relu(IN(proj(x)))))),
+    x2 = relu(IN(proj3(x))), out = relu(IN(proj4(x1 + x2))) + x; proj and
+    proj2 3x3, proj3 and proj4 1x1, all with bias."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        c = channels
+        self.proj = nn.Conv2d(c, c, 3)
+        self.proj2 = nn.Conv2d(c, c, 3)
+        self.proj3 = nn.Conv2d(c, c, 1)
+        self.proj4 = nn.Conv2d(c, c, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        def block(conv, y):
+            return F.relu(instance_norm(conv2d(y, conv.weight, conv.bias)))
+
+        x1 = block(self.proj2, block(self.proj, x))
+        x2 = block(self.proj3, x)
+        return block(self.proj4, x1 + x2) + x
 
 
 class PlainMambaLayer(nn.Module):
@@ -77,15 +108,16 @@ class MambaEncoder(nn.Module):
                  block_kwargs: dict | None = None, use_gsc: bool = False,
                  stage_mlp: bool = True):
         super().__init__()
-        if block != "plain" or block_kwargs:
+        blocks = {"plain": PlainMambaLayer, "spatial": SpatialMambaBlock,
+                  "spatial_kan": lambda c: SpatialMambaBlock(c, mlp_type="kan")}
+        if block not in blocks or block_kwargs:
             raise NotImplementedError(f"MambaEncoder block={block!r}: {_TODO}")
-        if use_gsc:
-            raise NotImplementedError(f"MambaEncoder use_gsc=True (GSC): {_TODO}")
         self.stem = nn.Conv2d(in_chans, dims[0], 7, stride=2, padding=3)
         self.downsample = nn.ModuleDict(
             {str(i): nn.Conv2d(dims[i - 1], dims[i], 2, stride=2) for i in range(1, 4)})
+        self.gscs = nn.ModuleList(GSC(dims[i]) for i in range(4)) if use_gsc else None
         self.stages = nn.ModuleList(
-            nn.ModuleList(PlainMambaLayer(dims[i]) for _ in range(depths[i])) for i in range(4))
+            nn.ModuleList(blocks[block](dims[i]) for _ in range(depths[i])) for i in range(4))
         self.mlps = (nn.ModuleList(MlpChannel(dims[i], 2 * dims[i]) for i in range(4))
                      if stage_mlp else None)
 
@@ -96,6 +128,8 @@ class MambaEncoder(nn.Module):
                 x = _conv_nhwc(self.stem, x)
             else:
                 x = _conv_nhwc(self.downsample[str(i)], instance_norm(x))
+            if self.gscs is not None:
+                x = self.gscs[i](x)
             for layer in self.stages[i]:
                 x = layer(x)
             if self.mlps is not None:
@@ -116,11 +150,10 @@ class SegMamba(nn.Module):
         super().__init__()
         if text_fusion is not None or text_fusion_hidden:
             raise NotImplementedError(f"SegMamba text_fusion={text_fusion!r}: {_TODO}")
-        if deep_supervision or ds_in_output:
-            raise NotImplementedError(f"SegMamba deep supervision: {_TODO}")
-        if final_refine is not None:
+        if final_refine not in (None, "fkan"):
             raise NotImplementedError(f"SegMamba final_refine={final_refine!r}: {_TODO}")
         f = list(feat_size)
+        self.ds_in_output = deep_supervision and ds_in_output
         self.vit = MambaEncoder(in_chans, depths, f, block, block_kwargs, use_gsc, stage_mlp)
         self.encoder1 = UnetrBasicBlock(in_chans, f[0])
         self.encoder2 = UnetrBasicBlock(f[0], f[1])
@@ -132,11 +165,16 @@ class SegMamba(nn.Module):
         self.decoder3 = UnetrUpBlock(f[2], f[1])
         self.decoder2 = UnetrUpBlock(f[1], f[0])
         self.decoder1 = UnetrBasicBlock(f[0], f[0])
+        self.final_refine_kan_mlp = FKANMLP(f[0], 4 * f[0]) if final_refine else None
         self.out = UnetOutBlock(f[0], out_chans)
+        if deep_supervision:  # the heads exist even where only the main head is returned
+            self.ds_head3 = UnetOutBlock(f[3], out_chans)
+            self.ds_head2 = UnetOutBlock(f[2], out_chans)
+            self.ds_head1 = UnetOutBlock(f[1], out_chans)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor):
         """x (B, H, W, in_chans), H and W divisible by 16 -> float32 logits
-        (B, H, W, out_chans)."""
+        (B, H, W, out_chans), or the tuple (main, ds1, ds2, ds3) of such."""
         x = x.to(self.out.conv.weight.dtype)
         outs = self.vit(x)
         enc1 = self.encoder1(x)
@@ -148,14 +186,30 @@ class SegMamba(nn.Module):
         dec2 = self.decoder4(dec3, enc3)
         dec1 = self.decoder3(dec2, enc2)
         dec0 = self.decoder2(dec1, enc1)
-        return self.out(self.decoder1(dec0)).float()
+        out = self.decoder1(dec0)
+        if self.final_refine_kan_mlp is not None:
+            b, h, w, c = out.shape
+            out = self.final_refine_kan_mlp(out.reshape(b, h * w, c)).reshape(b, h, w, c)
+        out_main = self.out(out)
+        if not self.ds_in_output:
+            return out_main.float()
+        target = tuple(out_main.shape[1:3])
+        heads = [resize_bilinear(head(dec), target).float()
+                 for head, dec in ((self.ds_head1, dec1), (self.ds_head2, dec2),
+                                   (self.ds_head3, dec3))]
+        return (out_main.float(), *heads)
 
 
 _NO_EXTRAS = dict(text_fusion=None, deep_supervision=False, final_refine=None)
 
-# registry name -> constructor kwargs (the JAX package's VARIANTS entry)
+# registry name -> constructor kwargs: the model of the JAX package's VARIANTS
+# entry, with every axis spelt out (the defaults here are the baseline's, JAX's
+# the flagship's)
 VARIANTS = {
     "Segmamba": dict(block="plain", use_gsc=False, stage_mlp=True, **_NO_EXTRAS),
+    "Segmamba_hybrid_gsc_KAN_PE_ds_CrossAttn_HSLCA_SpatialMamba_no_text": dict(
+        block="spatial", use_gsc=True, stage_mlp=False, text_fusion=None,
+        deep_supervision=True, final_refine="fkan", ds_in_output=True),
 }
 
 

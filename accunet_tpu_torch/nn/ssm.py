@@ -14,8 +14,25 @@ the SegMamba baseline instantiates (d_state 16, d_conv 4, expand 2).
 dt_proj is applied without its bias, which enters once as delta_bias (the
 fused CUDA path of mamba_ssm). Parameter names are the mamba_ssm fork's
 (tests/test_bimamba_parity.py), so the JAX tree maps onto them with
-`state_dict_from_jax`. Not ported yet: MambaVisionMixer, StructureAwareSSM,
-StateFusion, SpatialMambaBlock, KANFFN.
+`state_dict_from_jax`.
+
+Spatial-Mamba (`StateFusion`, `StructureAwareSSM`, `SpatialMambaMLP`,
+`SpatialMambaBlock`, `KANFFN`) on NHWC maps:
+
+    StructureAwareSSM: xs, z = split(in_proj(x)); xs = silu(dw conv 3x3(xs))
+        (dt, B, C) = x_proj_weight @ xs; dt = dt_projs_weight @ dt
+        h = selective_scan_rh(xs, dt, -exp(A_logs), B, dt_projs_bias, softplus)
+        h as the NHWC map of D*N channels -> StateFusion -> mean over N
+        y = out_norm(hmean * C + xs * Ds) * silu(z) -> out_proj
+    StateFusion: alpha-weighted sum of three depthwise 3x3 convs at
+        dilations 1, 3, 5 with replicate (edge) padding
+    SpatialMambaBlock: x += cpe1(x); x += SSM(ln_1(x)); x += cpe2(x);
+        x += mlp(ln_2(x)) (an exact-GELU MLP, or KANFFN)
+
+The return-hidden scan writes h as (B, L, D, N), which is the NHWC map
+itself, so the fusion takes it without a copy. The depthwise convs are
+cuDNN's grouped convs, as JAX's are XLA's (`nn.Conv`). Not ported yet:
+MambaVisionMixer.
 """
 
 from __future__ import annotations
@@ -26,7 +43,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from accunet_tpu_torch.ops.selective_scan import selective_scan
+from accunet_tpu_torch.nn.kan import KAN
+from accunet_tpu_torch.ops.conv import conv2d
+from accunet_tpu_torch.ops.selective_scan import selective_scan, selective_scan_rh
 
 
 class BiMamba(nn.Module):
@@ -85,3 +104,130 @@ class BiMamba(nn.Module):
         if self.if_devide_out:
             y = y / 2
         return self.out_proj(y)
+
+
+class StateFusion(nn.Module):
+    """h (B, H, W, D) -> the alpha-weighted sum of depthwise 3x3 convs at
+    dilations 1, 3 and 5, each on the map padded by replication."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.dim = dim
+        self.kernel_3 = nn.Parameter(torch.ones(dim, 1, 3, 3))
+        self.kernel_3_1 = nn.Parameter(torch.ones(dim, 1, 3, 3))
+        self.kernel_3_2 = nn.Parameter(torch.ones(dim, 1, 3, 3))
+        self.alpha = nn.Parameter(torch.ones(3))
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        x = h.permute(0, 3, 1, 2)  # the channels_last NCHW view
+
+        def dconv(kernel, dil):
+            xp = F.pad(x, (dil,) * 4, mode="replicate")
+            return F.conv2d(xp, kernel.to(x.dtype), dilation=dil, groups=self.dim)
+
+        a = self.alpha.to(h.dtype)
+        y = (a[0] * dconv(self.kernel_3, 1) + a[1] * dconv(self.kernel_3_1, 3)
+             + a[2] * dconv(self.kernel_3_2, 5))
+        return y.permute(0, 2, 3, 1)
+
+
+class StructureAwareSSM(nn.Module):
+    """Spatial-Mamba's SSM on x (B, H, W, C) -> (B, H, W, C)."""
+
+    def __init__(self, d_model: int, d_state: int = 16):
+        super().__init__()
+        # JAX's defaults: expand 2, a 3x3 depthwise conv, dt_rank ceil(C / 16)
+        d_inner = 2 * d_model
+        self.d_inner, self.d_state = d_inner, d_state
+        self.dt_rank = math.ceil(d_model / 16)
+        self.in_proj = nn.Linear(d_model, 2 * d_inner, bias=False)
+        self.conv2d = nn.Conv2d(d_inner, d_inner, 3, groups=d_inner, bias=True)
+        self.x_proj_weight = nn.Parameter(torch.empty(self.dt_rank + d_state + d_inner, d_inner))
+        self.dt_projs_weight = nn.Parameter(torch.empty(d_inner, self.dt_rank))
+        self.dt_projs_bias = nn.Parameter(torch.empty(d_inner))
+        self.A_logs = nn.Parameter(torch.empty(d_inner, d_state))
+        self.Ds = nn.Parameter(torch.empty(d_inner))
+        self.state_fusion = StateFusion(d_inner * d_state)
+        self.out_norm = nn.LayerNorm(d_inner, eps=1e-5)
+        self.out_proj = nn.Linear(d_inner, d_model, bias=False)
+        self.reset_ssm_parameters()
+
+    @torch.no_grad()
+    def reset_ssm_parameters(self) -> None:
+        """A_logs = log(1..d_state) on every row, Ds = 1, dt_projs_bias =
+        log(expm1(0.01)) (the JAX initialisers of the deterministic ones)."""
+        a = torch.log(torch.arange(1, self.d_state + 1, dtype=torch.float32))
+        self.A_logs.copy_(a.expand(self.d_inner, -1))
+        self.Ds.fill_(1.0)
+        self.dt_projs_bias.copy_(torch.log(torch.expm1(torch.full((self.d_inner,), 0.01))))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, hh, ww, _ = x.shape
+        d, n, l = self.d_inner, self.d_state, hh * ww
+        xs, z = self.in_proj(x).split(d, dim=-1)
+        xs = F.silu(conv2d(xs, self.conv2d.weight, self.conv2d.bias, groups=d))
+        xs_bdl = xs.permute(0, 3, 1, 2).reshape(b, d, l)  # (B, D, L)
+        x_dbl = torch.matmul(self.x_proj_weight.to(xs.dtype), xs_bdl)
+        dts, bs, cs = x_dbl.split([self.dt_rank, n, d], dim=1)
+        dts = torch.matmul(self.dt_projs_weight.to(dts.dtype), dts)
+        h = selective_scan_rh(xs_bdl, dts, -torch.exp(self.A_logs.float()), bs,
+                              delta_bias=self.dt_projs_bias, delta_softplus=True)  # (B, D, N, L)
+        hm = h.reshape(b, d * n, l).transpose(1, 2).reshape(b, hh, ww, d * n)
+        hm = self.state_fusion(hm.to(x.dtype))
+        hmean = hm.reshape(b, l, d, n).mean(dim=-1).transpose(1, 2)  # (B, D, L)
+        y = hmean * cs + xs_bdl * self.Ds.to(xs.dtype)[:, None]
+        y = self.out_norm(y.transpose(1, 2).reshape(b, hh, ww, d))
+        return self.out_proj(y * F.silu(z))
+
+
+class SpatialMambaMLP(nn.Module):
+    """fc1 -> exact GELU -> fc2."""
+
+    def __init__(self, hidden: int, out: int):
+        super().__init__()
+        self.fc1 = nn.Linear(out, hidden)
+        self.fc2 = nn.Linear(hidden, out)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.gelu(self.fc1(x)))
+
+
+class KANFFN(nn.Module):
+    """LayerNorm + KAN([c, 4c, c]) over the tokens of (B, H, W, C)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.norm = nn.LayerNorm(dim, eps=1e-5)
+        self.kan = KAN((dim, 4 * dim, dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, h, w, c = x.shape
+        return self.kan(self.norm(x).reshape(b * h * w, c)).reshape(b, h, w, c)
+
+
+class SpatialMambaBlock(nn.Module):
+    """x (B, H, W, C): conv position encodings, the SSM and the MLP of 4C
+    hidden features (or, with mlp_type="kan", KANFFN after ln_2: a double
+    norm, as in JAX), each with a residual."""
+
+    def __init__(self, hidden_dim: int, d_state: int = 16, mlp_type: str = "mlp"):
+        super().__init__()
+        c = hidden_dim
+        self.cpe1 = nn.Conv2d(c, c, 3, groups=c)
+        self.ln_1 = nn.LayerNorm(c, eps=1e-6)
+        self.self_attention = StructureAwareSSM(c, d_state=d_state)
+        self.cpe2 = nn.Conv2d(c, c, 3, groups=c)
+        self.ln_2 = nn.LayerNorm(c, eps=1e-6)
+        if mlp_type == "kan":
+            self.mlp = KANFFN(c)
+        elif mlp_type == "mlp":
+            self.mlp = SpatialMambaMLP(4 * c, c)
+        else:
+            raise ValueError(f"mlp_type {mlp_type!r}")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c = x.shape[-1]
+        x = x + conv2d(x, self.cpe1.weight, self.cpe1.bias, groups=c)
+        x = x + self.self_attention(self.ln_1(x))
+        x = x + conv2d(x, self.cpe2.weight, self.cpe2.bias, groups=c)
+        return x + self.mlp(self.ln_2(x))

@@ -45,6 +45,8 @@ SIGNATURES = {
     "accunet_expand_dw": [_P] * 5 + [_I] * 7 + [_P],
     "accunet_selective_scan_fwd": [_P] * 11 + [_I] * 5 + [_P],
     "accunet_selective_scan_bwd": [_P] * 22 + [_I] * 5 + [_P],
+    "accunet_selective_scan_rh_fwd": [_P] * 7 + [_I] * 5 + [_P],
+    "accunet_selective_scan_rh_bwd": [_P] * 14 + [_I] * 6 + [_P],
 }
 
 

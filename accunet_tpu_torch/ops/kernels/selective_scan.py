@@ -30,6 +30,17 @@ glue's traffic.
 versions, in the inputs' dtype (the tests run them in float64); on CPU
 tensors the wrappers take them, on CUDA tensors they launch the kernels or
 raise. `SelectiveScanFn` joins the two for autograd.
+
+The return-hidden form (`selective_scan_rh_fwd` / `selective_scan_rh_bwd`,
+joined by `SelectiveScanRhFn`) is the counterpart of `selective_scan_rh`
+(accunet_tpu/ops/selective_scan.py:100-117) with the same TPU kernel and
+its VJP folded in: no C, D or z, and every hidden state written, as a
+(B, L, D, N) tensor, which is the NHWC map of D*N channels (channel d*N + n)
+that Spatial-Mamba's StructureAwareSSM fuses next. Its backward takes the
+cotangent of h in that layout, or in the (B, D, N, L) order of JAX's h, the
+order a conv's input gradient reaches it in, and recomputes h from the
+forward's chunk states (chunks of `32 * rh_chunk_steps(L)` steps) rather
+than reading the (B, L, D, N) h back.
 """
 
 from __future__ import annotations
@@ -43,6 +54,7 @@ from accunet_tpu_torch.ops.kernels.scan import linear_scan_plain
 LANES = 32  # a warp's lanes split a chunk into runs of chunk_steps(L) steps
 BWD_WARPS = 8  # d per CTA of the backward kernel: its dB, dC partials are per 8 d
 MAX_STATES = 32  # the kernels' largest N (shared memory holds two chunks of N rows of B, C)
+RH_WARPS = 8  # d per CTA of the return-hidden kernels: the backward's dB partials are per 8 d
 
 
 def chunk_steps(length: int, n: int = 16) -> int:
@@ -59,6 +71,17 @@ def chunk_steps(length: int, n: int = 16) -> int:
 
 def n_chunks(length: int, n: int = 16) -> int:
     return -(-length // (LANES * chunk_steps(length, n)))
+
+
+def rh_chunk_steps(length: int) -> int:
+    """Steps each lane of the return-hidden kernels scans in registers: 2
+    for L <= 64, else 4 (their shared memory stages a chunk of h, 32 x this
+    many steps of 8N floats)."""
+    return 2 if length <= 64 else 4
+
+
+def rh_n_chunks(length: int) -> int:
+    return -(-length // (LANES * rh_chunk_steps(length)))
 
 
 def _delta(delta, delta_bias, delta_softplus):
@@ -249,4 +272,135 @@ class SelectiveScanFn(torch.autograd.Function):
         g = torch.zeros_like(ops[0]) if g is None else g.contiguous()
         g_last = None if g_last is None else g_last.contiguous()
         grads = selective_scan_bwd(*ops, ctx.delta_softplus, states, g, g_last)
+        return (*grads, None)
+
+
+# ----------------------------------------------------------------- return-hidden
+
+
+def selective_scan_rh_fwd_plain(u, delta, A, B, delta_bias=None, delta_softplus=False):
+    """Plain version of the return-hidden forward, in the inputs' dtype: u,
+    delta (B, D, L); A (D, N); B (B, N, L); delta_bias (D,) -> every hidden
+    state h (B, L, D, N)."""
+    _, dl = _delta(delta, delta_bias, delta_softplus)
+    return _discretise(u, dl, A, B)[1]
+
+
+def selective_scan_rh_bwd_plain(u, delta, A, B, delta_bias, delta_softplus, gh):
+    """Plain version of the return-hidden backward, in the inputs' dtype: the
+    cotangent gh of h (B, L, D, N) -> (du, ddelta, dA, dB, dbias), dbias None
+    without delta_bias:
+
+        G[t] = gh[t] + a[t+1]*G[t+1]                  (G[L] = 0)
+        dB = sum_d G*delta*u        du = sum_n G*delta*B
+        ddelta' = sum_n G*(h[t-1]*a*A + u*B)          dA = sum_{b,t} G*h[t-1]*a*delta
+        ddelta = ddelta'*sigmoid(pre)                 (with softplus)
+        dbias = sum_{b,t} ddelta"""
+    pre, dl = _delta(delta, delta_bias, delta_softplus)
+    a, h = _discretise(u, dl, A, B)
+    bsz, l, d, n = h.shape
+    G = linear_scan_plain(a.reshape(bsz, l, d * n), gh.reshape(bsz, l, d * n),
+                          reverse=True).reshape(bsz, l, d, n)
+    h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
+    gha = G * h_prev * a
+    gb = torch.einsum("bldn,bnl->bdl", G, B)
+    ddl = torch.einsum("bldn,dn->bdl", gha, A) + gb * u
+    dA = torch.einsum("bldn,bdl->dn", gha, dl)
+    dB = torch.einsum("bldn,bdl->bnl", G, dl * u)
+    ddelta = ddl * torch.sigmoid(pre) if delta_softplus else ddl
+    dbias = ddelta.sum(dim=(0, 2)) if delta_bias is not None else None
+    return gb * dl, ddelta, dA, dB, dbias
+
+
+def selective_scan_rh_fwd(u, delta, A, B, delta_bias=None, delta_softplus=False,
+                          save_states=False):
+    """The return-hidden forward kernel: (h (B, L, D, N), chunk states (B,
+    D, rh_n_chunks(L), N) or None). Contiguous float32 operands; the chunk
+    states are written with `save_states` (for the backward) and are None on
+    the CPU."""
+    if u.device.type == "cpu":
+        return selective_scan_rh_fwd_plain(u, delta, A, B, delta_bias, delta_softplus), None
+    bsz, d, l, n = _check(u, delta, A, B, None, None, None, delta_bias)
+    h = torch.empty(bsz, l, d, n, dtype=torch.float32, device=u.device)
+    states = (torch.empty(bsz, d, rh_n_chunks(l), n, dtype=torch.float32, device=u.device)
+              if save_states else None)
+    err = _build.load_library().accunet_selective_scan_rh_fwd(
+        u.data_ptr(), delta.data_ptr(), A.data_ptr(), B.data_ptr(), _ptr(delta_bias),
+        h.data_ptr(), _ptr(states), bsz, d, l, n, int(delta_softplus), _build.stream_of(u))
+    _build.check(err, "accunet_selective_scan_rh_fwd")
+    selective_scan_rh_fwd.launches += 1
+    return h, states
+
+
+selective_scan_rh_fwd.launches = 0
+
+
+def rh_layout_read(gh: torch.Tensor) -> bool:
+    """Whether the backward kernel reads the cotangent gh (B, L, D, N) as it
+    lies: contiguous, or the (B, L, D, N) view of a (B, D, N, L)-contiguous
+    tensor."""
+    return gh.is_contiguous() or gh.permute(0, 2, 3, 1).is_contiguous()
+
+
+def selective_scan_rh_bwd(u, delta, A, B, delta_bias, delta_softplus, states, gh):
+    """The return-hidden backward kernel: the forward's operands, its chunk
+    states and the cotangent gh of h (B, L, D, N), contiguous or a view of a
+    (B, D, N, L)-contiguous tensor (`rh_layout_read`) -> (du, ddelta, dA,
+    dB, dbias), dbias None without delta_bias. One launch of the kernel and
+    one of the reduction it shares with selective_scan_bwd (dB over the
+    d-blocks, dA and dbias over b), both in a fixed order."""
+    if u.device.type == "cpu":
+        return selective_scan_rh_bwd_plain(u, delta, A, B, delta_bias, delta_softplus, gh)
+    bsz, d, l, n = _check(u, delta, A, B, None, None, None, delta_bias)
+    dnl = not gh.is_contiguous() and gh.permute(0, 2, 3, 1).is_contiguous()
+    if dnl:
+        _build.require(gh.permute(0, 2, 3, 1), "gh", (bsz, d, n, l), torch.float32, u.device)
+    else:
+        _build.require(gh, "gh", (bsz, l, d, n), torch.float32, u.device)
+    _build.require(states, "states", (bsz, d, rh_n_chunks(l), n), torch.float32, u.device)
+    blocks = -(-d // RH_WARPS)
+    f32 = dict(dtype=torch.float32, device=u.device)
+    du, ddelta = torch.empty_like(u), torch.empty_like(u)
+    dA, dB = torch.empty(d, n, **f32), torch.empty(bsz, n, l, **f32)
+    dbias = torch.empty(d, **f32) if delta_bias is not None else None
+    # per-d-block partials of dB (dB itself for one block), per-b ones of dA, dbias
+    part_b = torch.empty(blocks, bsz, n, l, **f32) if blocks > 1 else dB
+    part_bd = torch.empty(bsz, d, n + 2, **f32)
+    err = _build.load_library().accunet_selective_scan_rh_bwd(
+        u.data_ptr(), delta.data_ptr(), A.data_ptr(), B.data_ptr(), _ptr(delta_bias),
+        states.data_ptr(), gh.data_ptr(), du.data_ptr(), ddelta.data_ptr(), part_b.data_ptr(),
+        part_bd.data_ptr(), dA.data_ptr(), dB.data_ptr(), _ptr(dbias),
+        bsz, d, l, n, int(delta_softplus), int(dnl), _build.stream_of(u))
+    _build.check(err, "accunet_selective_scan_rh_bwd")
+    selective_scan_rh_bwd.launches += 1
+    return du, ddelta, dA, dB, dbias
+
+
+selective_scan_rh_bwd.launches = 0
+
+
+class SelectiveScanRhFn(torch.autograd.Function):
+    """h (B, L, D, N) = the return-hidden scan of float32 operands,
+    differentiable in all of them through `selective_scan_rh_bwd`. A
+    cotangent in a layout the kernel does not read (`rh_layout_read`) is
+    copied once; `gh_copies` counts those copies."""
+
+    gh_copies = 0
+
+    @staticmethod
+    def forward(ctx, u, delta, A, B, delta_bias, delta_softplus):
+        ops = [t if t is None else t.contiguous() for t in (u, delta, A, B, delta_bias)]
+        h, states = selective_scan_rh_fwd(*ops, delta_softplus,
+                                          save_states=any(ctx.needs_input_grad))
+        ctx.delta_softplus = delta_softplus
+        ctx.save_for_backward(*ops, states)
+        return h
+
+    @staticmethod
+    def backward(ctx, gh):
+        *ops, states = ctx.saved_tensors
+        if not rh_layout_read(gh):
+            gh = gh.contiguous()
+            SelectiveScanRhFn.gh_copies += 1
+        grads = selective_scan_rh_bwd(*ops, ctx.delta_softplus, states, gh)
         return (*grads, None)

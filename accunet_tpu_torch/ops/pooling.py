@@ -3,8 +3,8 @@
 Counterpart of accunet_tpu/ops/pooling.py. Every window the ACC-UNet family
 uses is a power of two that divides the spatial dims, so pooling is a reshape
 plus a reduction (kernel = stride, no padding, as torch's AvgPool2d(s) /
-MaxPool2d(s)); avg_pool2d rejects a non-divisible map, max_pool2d floors it
-as JAX's max_pool2d does (UNeXt's stem on odd maps).
+MaxPool2d(s)); on a map the window does not divide, both drop the ragged
+edge, as JAX's VALID window does (UNeXt's stem on odd maps).
 """
 
 from __future__ import annotations
@@ -19,19 +19,23 @@ def _windows(x: torch.Tensor, s: int) -> torch.Tensor:
     return x.reshape(b, h // s, s, w // s, s, c)
 
 
+def _floored(x: torch.Tensor, s: int) -> torch.Tensor:
+    h, w = x.shape[1], x.shape[2]
+    return _windows(x[:, : h - h % s, : w - w % s], s)
+
+
 def avg_pool2d(x: torch.Tensor, s: int) -> torch.Tensor:
-    """AvgPool kernel=s stride=s (NHWC)."""
+    """AvgPool kernel=s stride=s (NHWC); a ragged edge is dropped."""
     if s == 1:
         return x
-    return _windows(x, s).mean(dim=(2, 4))
+    return _floored(x, s).mean(dim=(2, 4))
 
 
 def max_pool2d(x: torch.Tensor, s: int) -> torch.Tensor:
     """MaxPool kernel=s stride=s (NHWC); a ragged edge is dropped."""
     if s == 1:
         return x
-    h, w = x.shape[1], x.shape[2]
-    return _windows(x[:, : h - h % s, : w - w % s], s).amax(dim=(2, 4))
+    return _floored(x, s).amax(dim=(2, 4))
 
 
 def upsample_nearest(x: torch.Tensor, s: int) -> torch.Tensor:

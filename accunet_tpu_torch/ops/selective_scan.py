@@ -7,15 +7,17 @@ one backward (ops/kernels/selective_scan.py, `SelectiveScanFn`), so no
 (B, L, D, N) tensor reaches device memory. Layouts follow the torch API, as
 in JAX: u/delta (B, D, L), A (D, N), B/C (B, N, L), D (D,), z (B, D, L).
 
-Not ported yet: `selective_scan_rh` (the return-hidden variant; it is to
-extend the fused forward with a hidden-state output) and the
-sequence-sharded scan (`parallel/seq_scan.py`) that JAX's `_scan_bldn` takes
-under an active mesh context.
+`selective_scan_rh`, the return-hidden variant, runs the return-hidden
+kernels (`SelectiveScanRhFn`): every hidden state comes out of the kernel
+as a (B, L, D, N) tensor and is returned as a (B, D, N, L) view of it.
+
+Not ported yet: the sequence-sharded scan (`parallel/seq_scan.py`) that
+JAX's `_scan_bldn` takes under an active mesh context.
 """
 
 from __future__ import annotations
 
-from accunet_tpu_torch.ops.kernels.selective_scan import SelectiveScanFn
+from accunet_tpu_torch.ops.kernels.selective_scan import SelectiveScanFn, SelectiveScanRhFn
 
 
 def _f32(t):
@@ -33,3 +35,11 @@ def selective_scan(u, delta, A, B, C, D=None, z=None, delta_bias=None,
     if return_last_state:
         return y, last.to(dtype_in)
     return y
+
+
+def selective_scan_rh(u, delta, A, B, delta_bias=None, delta_softplus=False):
+    """Return-hidden selective scan: every hidden state h (B, D, N, L) in
+    float32, a view of the kernel's (B, L, D, N) tensor (so h.reshape(B, D*N,
+    L).transpose(1, 2) is the contiguous NHWC map of D*N channels)."""
+    h = SelectiveScanRhFn.apply(*map(_f32, (u, delta, A, B, delta_bias)), delta_softplus)
+    return h.permute(0, 2, 3, 1)

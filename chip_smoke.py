@@ -89,7 +89,28 @@ From the root of a checkout, with one CUDA device:
      its b1024 bf16 inference (the JAX bench's headline batch) with peak
      memory, UNext_CMRF b8 fp32 inference and train step, and the wgrad
      kernel at phase 19's shapes beside its plain version, cuDNN's
-     weight-only backward and its bound. Phases 19-24 print their seconds.
+     weight-only backward and its bound. Phases 19-24 print their seconds;
+ 25. holds the return-hidden selective scan (selective_scan_rh_fwd: h and
+     the chunk states; selective_scan_rh_bwd: du, ddelta, dA, dB, dbias)
+     against its plain versions at the four stage shapes of the Spatial-
+     Mamba Segmamba variant b8 224x224, BASELINE config 5's block (b8 56x56,
+     C 64, d_state 16), N = 1 and an odd shape, and the backward bitwise on
+     a second call;
+ 26. checks SelectiveScanRhFn's gradients against autograd of the plain
+     forward;
+ 27. runs the train entry point with --model
+     Segmamba_hybrid_gsc_KAN_PE_ds_CrossAttn_HSLCA_SpatialMamba_no_text
+     --n-classes 2 as in phase 7 and checks 8 rh forwards per train step and
+     per validation forward, 8 rh backwards per train step and no other
+     kernel launch;
+ 28. compares that variant at full width, b8 224x224, through the rh
+     kernels against the same GPU model through the plain rh scan; a b1
+     64x64 forward GPU vs CPU (its four outputs and block taps); one b2
+     64x64 train step against the same step in float64 on the CPU; the
+     SpatialMamba classifier (depths 1, d_state 1 and 16) b1 GPU vs CPU;
+ 29. times the variant's b8 224x224 fp32 inference and train step with peak
+     memory, BASELINE config 5's SpatialMambaBlock forward, and each rh
+     kernel per shape against its plain version and its bound.
 It prints a JSON line of the kernels, then as its last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 A failed phase raises, so the run exits non-zero and prints no result; so
@@ -366,7 +387,7 @@ EVAL_LAUNCHES = {"hanc_block": 7, "respath_level": 7, "hanc_mix": 9, "expand_dw"
 # every kernel wrapper's counter, by name
 KERNELS = ("hanc_block", "respath_level", "hanc_mix", "expand_dw", "dwconv2d_wgrad",
            "linear_scan", "linear_scan_reverse", "linear_scan_staged", "selective_scan_fwd",
-           "selective_scan_bwd")
+           "selective_scan_bwd", "selective_scan_rh_fwd", "selective_scan_rh_bwd")
 
 
 def run_eval_cli(counters, model="ACC_UNet", n_classes=1, hw=HW, batch=B, n=2 * B,
@@ -464,13 +485,14 @@ def check_autograd_fns(dev):
         raise SmokeError(f"autograd functions disagree with their plain versions: {bad}")
 
 
-def run_train_cli(counters, model, want_fn):
-    """Phases 7 and 13: the train entry point for `model` on a synthetic
-    ISIC-style folder: two epochs with a checkpoint directory, then --resume
-    auto for a third. Returns the launches of the train steps and of the
-    validation forwards apart: the counts are set to 0 before each epoch's
-    train or validation pass (engine.run_epoch, which fit calls) and read
-    after it. want_fn(steps, val_batches) gives the expected launches."""
+def run_train_cli(counters, model, want_fn, extra=()):
+    """Phases 7, 13, 21 and 27: the train entry point for `model` (with the
+    arguments `extra`) on a synthetic ISIC-style folder: two epochs with a
+    checkpoint directory, then --resume auto for a third. Returns the
+    launches of the train steps and of the validation forwards apart: the
+    counts are set to 0 before each epoch's train or validation pass
+    (engine.run_epoch, which fit calls) and read after it. want_fn(steps,
+    val_batches) gives the expected launches."""
     from accunet_tpu_torch.cli import train as cli
     from accunet_tpu_torch.train import engine
 
@@ -490,7 +512,7 @@ def run_train_cli(counters, model, want_fn):
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, "ckpt")
         argv = ["--model", model, "--synthetic", "--img-size", str(HW), "--batch", str(B),
-                "--device", "cuda", "--ckpt-dir", ckpt, "--check-numerics"]
+                "--device", "cuda", "--ckpt-dir", ckpt, "--check-numerics", *extra]
         engine.run_epoch = counted_run_epoch
         try:
             t0 = time.perf_counter()
@@ -1458,6 +1480,493 @@ def seeded_unext(name="UNext", **kw):
     return seeded_bns(model, 20).eval()
 
 
+# ------------------------------------------------------------ Spatial-Mamba slice
+# The Spatial-Mamba Segmamba variant (no text) at full width, b8 224x224: feat
+# 48/96/192/384, d_state 16, expand 2, depths 2; each stage-i SpatialMambaBlock
+# runs one return-hidden scan over L = (112 / 2^i)^2 steps and D = 2 * feat_i
+# (h: B x L x D x 16 floats, 616.6 MB at stage 0). Trained with 2 classes: the
+# binary loss takes no deep-supervision tuple, in JAX as here.
+SPM_VARIANT = "Segmamba_hybrid_gsc_KAN_PE_ds_CrossAttn_HSLCA_SpatialMamba_no_text"
+SPM_CLASSES = 2
+RH_PER_FORWARD = 8
+# (name, B, L, D, N): the variant's four stages; BASELINE config 5's block
+# (bench.py:118-148: SpatialMambaBlock b8, 56x56, C 64, d_state 16); the
+# classifier's default d_state 1 at its first stage (224x224: 56x56, C 64);
+# an odd shape (L 300: a partial chunk; D 13: a partial CTA of 8 d)
+RH_SHAPES = tuple((f"stage{i}", B, (HW // 2 >> i) ** 2, 2 * f, N_STATES)
+                  for i, f in enumerate(SM_FEAT)) + (
+    ("config5", B, 56 * 56, 128, N_STATES), ("n1", B, 56 * 56, 128, 1), ("odd", 3, 300, 13, 16))
+SPM_CMP_HW = 64
+SPM_TAPS = ("vit.gscs.0", "vit.stages.0.1", "vit.stages.3.1", "encoder5", "decoder1",
+            "final_refine_kan_mlp")
+# compare_spm_train_step says how they are held: the loss, and the gradients
+# as a whole, whose fp32 spread in this model is set by the library's convs,
+# not by the scans: 2.8e-3 of the largest gradient on the CPU at b2 32x32
+# (decoder4's and the GSC's conv weights, the stem), 1.87e-3 on the H100 at
+# b2 64x64 (the GSC's proj2 weight, where the CPU's fp32 step is at 4e-7;
+# cuDNN took FFT algorithms for some of those convs there)
+SPM_TRAIN_LOSS_TOL, SPM_TRAIN_TOL = 1e-4, 5e-3
+
+
+def rh_inputs(g, b, l, d, n):
+    """The rh kernels' operands as StructureAwareSSM hands them: u =
+    silu(N(0, 1)), delta N(0, 0.5^2) before its softplus, A = -(1..N) per
+    row (the init), B ~ N(0, 1), bias ~ N(0, 0.1^2); and a cotangent gh ~
+    N(0, 1) of h (B, L, D, N)."""
+    def rn(*shape, s=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * s
+
+    ops = (F.silu(rn(b, d, l)), rn(b, d, l, s=0.5),
+           -torch.arange(1, n + 1, device="cuda", dtype=torch.float32).expand(d, n).contiguous(),
+           rn(b, n, l), rn(d, s=0.1))
+    return ops, rn(b, l, d, n)
+
+
+def check_rh_scan():
+    """Phase 25: selective_scan_rh_fwd (h, and the chunk states against h at
+    each chunk's last step) and selective_scan_rh_bwd (du, ddelta, dA, dB,
+    dbias) against their plain versions at RH_SHAPES, softplus and bias on
+    as StructureAwareSSM runs them, rel <= FP32_TOL, and the backward's
+    outputs bitwise equal on a second call and with the cotangent laid out
+    as (B, D, N, L). Returns {kernel: max abs error vs plain}."""
+    from accunet_tpu_torch.ops.kernels import selective_scan as SS
+
+    g = torch.Generator("cuda").manual_seed(25)
+    worst, bad = {"selective_scan_rh_fwd": 0.0, "selective_scan_rh_bwd": 0.0}, []
+    for name, b, l, d, n in RH_SHAPES:
+        ops, gh = rh_inputs(g, b, l, d, n)
+        h, states = SS.selective_scan_rh_fwd(*ops, True, save_states=True)
+        grads = SS.selective_scan_rh_bwd(*ops, True, states, gh)
+        again = SS.selective_scan_rh_bwd(*ops, True, states, gh)
+        dnl = SS.selective_scan_rh_bwd(*ops, True, states,
+                                       gh.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2))
+        torch.cuda.synchronize()
+        same = all(torch.equal(p, q) and torch.equal(p, r) for p, q, r in zip(grads, again, dnl))
+        del again, dnl
+        want = SS.selective_scan_rh_fwd_plain(*ops, True)
+        step = 32 * SS.rh_chunk_steps(l)
+        f_errs = [rel_err(h, want)]
+        if states.shape[2] > 1:  # the state entering chunk c is h at step c * step - 1
+            f_errs.append(rel_err(states[:, :, 1:], want[:, step - 1::step][:, :states.shape[2] - 1]
+                                  .permute(0, 2, 1, 3)))
+        del want, h
+        torch.cuda.empty_cache()
+        want = SS.selective_scan_rh_bwd_plain(*ops, True, gh)
+        b_errs = {k: rel_err(p, q) for k, p, q in zip(("du", "ddelta", "dA", "dB", "dbias"),
+                                                     grads, want)}
+        rel = max([e[1] for e in f_errs] + [e[1] for e in b_errs.values()])
+        ok = rel <= FP32_TOL and same
+        worst["selective_scan_rh_fwd"] = max(worst["selective_scan_rh_fwd"],
+                                             max(e[0] for e in f_errs))
+        worst["selective_scan_rh_bwd"] = max(worst["selective_scan_rh_bwd"],
+                                             max(e[0] for e in b_errs.values()))
+        log(f"  {'ok ' if ok else 'BAD'} selective_scan_rh {name:7s} B{b} L{l:5d} D{d:3d} N{n:2d}: "
+            f"h rel {f_errs[0][1]:.3e}, chunk states "
+            f"{f_errs[1][1] if len(f_errs) > 1 else 0.0:.3e}; "
+            + ", ".join(f"{k} {v[1]:.3e}" for k, v in b_errs.items())
+            + f" (tol {FP32_TOL:g}); backward bitwise on a second call and from a (B, D, N, "
+            f"L) cotangent {same}")
+        if not ok:
+            bad.append(name)
+        del ops, gh, states, grads, want
+        torch.cuda.empty_cache()
+    if bad:
+        raise SmokeError(f"the return-hidden scan disagrees with its plain versions: {bad}")
+    return worst
+
+
+def check_rh_autograd():
+    """Phase 26: SelectiveScanRhFn's gradients (both rh kernels) against
+    autograd through selective_scan_rh_fwd_plain, at stage 2's shape and the
+    odd one, with the cotangent in h's own strides, in the (B, D, N, L)
+    order of JAX's h (both read as they lie) and in (B, N, L, D) order
+    (copied once, counted in gh_copies)."""
+    from accunet_tpu_torch.ops.kernels.selective_scan import (SelectiveScanRhFn,
+                                                              selective_scan_rh_fwd_plain)
+
+    g = torch.Generator("cuda").manual_seed(26)
+    bad = []
+    for name, b, l, d, n in (RH_SHAPES[2], RH_SHAPES[-1]):
+        ops, gh = rh_inputs(g, b, l, d, n)
+        ops = [t.requires_grad_(True) for t in ops]
+        want = torch.autograd.grad(selective_scan_rh_fwd_plain(*ops, True), ops, gh)
+        for order, copied in (((0, 1, 2, 3), 0), ((0, 2, 3, 1), 0), ((0, 3, 1, 2), 1)):
+            copies = SelectiveScanRhFn.gh_copies
+            h = SelectiveScanRhFn.apply(*ops, True)
+            got = torch.autograd.grad(h.permute(*order).contiguous(), ops,
+                                      gh.permute(*order).contiguous())
+            rel = max(rel_err(p, q)[1] for p, q in zip(got, want))
+            ok = rel <= FP32_TOL and SelectiveScanRhFn.gh_copies == copies + copied
+            log(f"  {'ok ' if ok else 'BAD'} SelectiveScanRhFn {name} B{b} L{l} D{d} N{n}, "
+                f"cotangent in dims order {order}: grads rel {rel:.3e} (tol {FP32_TOL:g}), gh "
+                f"copies {SelectiveScanRhFn.gh_copies - copies}")
+            if not ok:
+                bad.append(f"{name} order={order}")
+    if bad:
+        raise SmokeError(f"SelectiveScanRhFn disagrees with autograd of the plain forward: {bad}")
+
+
+def spm_model(n_classes=SPM_CLASSES):
+    """The Spatial-Mamba variant at full width and depth (3 channels in,
+    n_classes out), seeded with the JAX package's initialisers, eval mode,
+    on the CPU."""
+    from accunet_tpu_torch.models import build, init_parameters
+
+    return init_parameters(build(SPM_VARIANT, in_chans=3, out_chans=n_classes),
+                           torch.Generator().manual_seed(0)).eval()
+
+
+class PlainRhScan:
+    """SelectiveScanRhFn's stand-in through the plain forward."""
+
+    @staticmethod
+    def apply(*args):
+        from accunet_tpu_torch.ops.kernels.selective_scan import selective_scan_rh_fwd_plain
+
+        return selective_scan_rh_fwd_plain(*args)
+
+
+@contextlib.contextmanager
+def plain_rh_scan():
+    """Route selective_scan_rh through selective_scan_rh_fwd_plain instead
+    of the rh kernels."""
+    from accunet_tpu_torch.ops import selective_scan as SS
+
+    kernel = SS.SelectiveScanRhFn
+    SS.SelectiveScanRhFn = PlainRhScan
+    try:
+        yield
+    finally:
+        SS.SelectiveScanRhFn = kernel
+
+
+def forward_tuple_taps(model, x, taps):
+    """(outputs as a tuple on the CPU, {tap: module output on the CPU})."""
+    feats = {}
+    hooks = [model.get_submodule(n).register_forward_hook(
+        lambda mod, inp, out, n=n: feats.__setitem__(n, out.float().cpu())) for n in taps]
+    try:
+        out = model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    out = out if isinstance(out, tuple) else (out,)
+    return tuple(o.float().cpu() for o in out), feats
+
+
+def compare_spm(model):
+    """Phase 28a/b: the variant b8 224x224 fp32 on the GPU through the rh
+    kernels vs the same GPU model through selective_scan_rh_fwd_plain (its
+    four outputs and the taps, rel <= FP32_TOL); then full width, b1 64x64,
+    GPU vs CPU (plain versions), rel <= MODEL_TOL."""
+    from accunet_tpu_torch.ops.kernels.selective_scan import selective_scan_rh_fwd
+
+    gpu = copy.deepcopy(model).cuda()
+    x = torch.randn(B, HW, HW, 3, device="cuda", generator=torch.Generator("cuda").manual_seed(28))
+    with torch.inference_mode():
+        before = selective_scan_rh_fwd.launches
+        got, got_f = forward_tuple_taps(gpu, x, SPM_TAPS)
+        n_kernel = selective_scan_rh_fwd.launches - before
+        with plain_rh_scan():
+            want, want_f = forward_tuple_taps(gpu, x, SPM_TAPS)
+        n_plain = selective_scan_rh_fwd.launches - before - n_kernel
+    if (n_kernel, n_plain) != (RH_PER_FORWARD, 0):
+        raise SmokeError(f"selective_scan_rh_fwd launches: the kernel forward {n_kernel}, the "
+                         f"plain one {n_plain}")
+    errs = {n: rel_err(got_f[n], want_f[n])[1] for n in SPM_TAPS}
+    errs.update({f"out{i}": rel_err(p, q)[1] for i, (p, q) in enumerate(zip(got, want))})
+    worst = max(errs.values())
+    log(f"  b{B} {HW}x{HW}, rh kernels vs the plain rh scan on the GPU ({n_kernel} "
+        f"selective_scan_rh_fwd launches): "
+        + ", ".join(f"{k} rel {v:.3e}" for k, v in errs.items())
+        + f" (|logit| <= {float(want[0].abs().max()):.3g}, tol {FP32_TOL:g})")
+    del gpu, got, want, got_f, want_f
+    torch.cuda.empty_cache()
+    if worst > FP32_TOL:
+        raise SmokeError("the variant through the rh kernels disagrees with the plain scan")
+    xs = torch.from_numpy(np.random.default_rng(29).standard_normal(
+        (1, SPM_CMP_HW, SPM_CMP_HW, 3), dtype=np.float32))
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        want, want_f = forward_tuple_taps(model, xs, SPM_TAPS)
+        cpu_s = time.perf_counter() - t0
+        got, got_f = forward_tuple_taps(copy.deepcopy(model).cuda(), xs.cuda(), SPM_TAPS)
+    errs = {n: rel_err(got_f[n], want_f[n])[1] for n in SPM_TAPS}
+    errs.update({f"out{i}": rel_err(p, q)[1] for i, (p, q) in enumerate(zip(got, want))})
+    rel = max(errs.values())
+    log(f"  b1 {SPM_CMP_HW}x{SPM_CMP_HW}, GPU vs CPU: " + ", ".join(
+        f"{k} rel {v:.3e}" for k, v in errs.items()) + f" (tol {MODEL_TOL:g}); CPU forward "
+        f"{cpu_s:.1f} s")
+    if rel > MODEL_TOL:
+        raise SmokeError("the variant on the GPU disagrees with the CPU")
+    return {"kernel_vs_plain_rel": worst, "gpu_vs_cpu_rel": rel}
+
+
+def spm_loss_fns():
+    from accunet_tpu_torch.train import losses as L
+    from accunet_tpu_torch.train import metrics as M
+
+    return dict(loss_fn=L.multiclass_dice_ce, dice_show=L.multiclass_dice_show,
+                iou_fn=M.multiclass_batch_iou)
+
+
+class RhTaps:
+    """Routes selective_scan_rh through a tap that keeps, for every
+    return-hidden scan of a step, its operands and the cotangent of its h,
+    so that the rh kernels' gradients in the step can be held against the
+    plain backward of the same operands (as DepthwiseTaps holds the wgrad)."""
+
+    def __init__(self):
+        from accunet_tpu_torch.ops import selective_scan as OSS
+
+        self.module, self.fn, self.calls = OSS, OSS.SelectiveScanRhFn, []
+        taps = self
+
+        class Tap:
+            @staticmethod
+            def apply(*args):
+                h = taps.fn.apply(*args)
+                rec = {"ops": [a.detach().contiguous() if isinstance(a, torch.Tensor) else a
+                               for a in args[:-1]], "softplus": args[-1]}
+                h.register_hook(lambda g: rec.__setitem__("gh", g.detach().contiguous()))
+                taps.calls.append(rec)
+                return h
+
+        OSS.SelectiveScanRhFn = Tap
+
+    def worst(self):
+        """(largest rel error of the rh kernels' five gradients vs the plain
+        backward over the step's scans, the number of scans)."""
+        from accunet_tpu_torch.ops.kernels import selective_scan as SS
+
+        self.module.SelectiveScanRhFn = self.fn
+        errs = []
+        for i, rec in enumerate(self.calls):
+            ops, sp = rec["ops"], rec["softplus"]
+            _, states = SS.selective_scan_rh_fwd(*ops, sp, save_states=True)
+            got = SS.selective_scan_rh_bwd(*ops, sp, states, rec["gh"])
+            want = SS.selective_scan_rh_bwd_plain(*ops, sp, rec["gh"])
+            errs += [(rel_err(p, q)[1], f"scan {i} {k}") for k, p, q in
+                     zip(("du", "ddelta", "dA", "dB", "dbias"), got, want) if q is not None]
+        return max(errs), len(self.calls)
+
+
+def compare_spm_train_step(b=2, hw=SPM_CMP_HW):
+    """Phase 28c: one train step of the variant at full width, b2 64x64
+    (multiclass_dice_ce over its four heads, backward, Adam), on the GPU in
+    fp32 (rh kernels), held against the same step on the CPU in float64
+    (plain versions), with the CPU's fp32 step as the control:
+      * the loss to SPM_TRAIN_LOSS_TOL relative;
+      * every rh scan's five gradients in the GPU step to FP32_TOL of the
+        plain backward of that scan's own operands and cotangent (RhTaps):
+        this holds the kernels in the step whatever the step's rounding;
+      * the gradients as a whole (the largest error over the largest
+        float64 gradient) within twice the control's gap or SPM_TRAIN_TOL:
+        the library's conv weight gradients carry most of the fp32 spread
+        (SPM_TRAIN_TOL's note); the largest parameters are printed.
+    The model has no BatchNorm (instance norms only)."""
+    from accunet_tpu_torch.train.engine import make_train_fns
+
+    base = spm_model()
+    rs = np.random.default_rng(30)
+    x = torch.from_numpy(rs.random((b, hw, hw, 3), dtype=np.float32))
+    mask = torch.from_numpy(rs.integers(0, SPM_CLASSES + 1, (b, hw, hw, 1)).astype(np.float32))
+    res = {}
+    for tag, d, dt in (("gpu", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
+                       ("cpu64", "cpu", torch.float64)):
+        t0 = time.perf_counter()
+        model = copy.deepcopy(base).to(device=d, dtype=dt)
+        taps = RhTaps() if tag == "gpu" else None
+        fns = make_train_fns(model, **spm_loss_fns())
+        _, stats = fns.train_step(fns.state, {"image": x.to(d, dt), "mask": mask.to(d, dt)})
+        res[tag] = (float(stats["loss"]),
+                    {n: p.grad.detach().double().cpu() for n, p in model.named_parameters()
+                     if p.grad is not None})
+        if taps is not None:
+            rh_err, n_rh = taps.worst()
+        log(f"  {tag:5s} loss {res[tag][0]:.8f} ({time.perf_counter() - t0:.1f} s)")
+
+    want = res["cpu64"][1]
+    scale = max(float(t.abs().max()) for t in want.values())
+
+    def per_param(tag):
+        return {n: float((res[tag][1][n] - t).abs().max()) / scale for n, t in want.items()}
+
+    gpu_p, cpu_p = per_param("gpu"), per_param("cpu")
+    out = {"loss_rel": abs(res["gpu"][0] - res["cpu64"][0]) / abs(res["cpu64"][0]),
+           "grad_gap_gpu": max(gpu_p.values()), "grad_gap_cpu": max(cpu_p.values()),
+           "loss_rel_cpu": abs(res["cpu"][0] - res["cpu64"][0]) / abs(res["cpu64"][0]),
+           "rh_vs_plain": rh_err[0], "rh_worst": rh_err[1], "rh_scans": n_rh}
+    top = sorted(gpu_p, key=gpu_p.get, reverse=True)[:6]
+    log(f"  vs the float64 CPU step, GPU (CPU fp32 control): loss rel {out['loss_rel']:.3e} "
+        f"({out['loss_rel_cpu']:.3e}); gradients over the largest ({scale:.3e}) "
+        f"{out['grad_gap_gpu']:.3e} ({out['grad_gap_cpu']:.3e}); tol {SPM_TRAIN_LOSS_TOL:g} / "
+        f"{SPM_TRAIN_TOL:g}. "
+        f"{n_rh} rh scans' gradients vs the plain backward of the step's operands: rel "
+        f"{rh_err[0]:.3e} at {rh_err[1]}")
+    log("  largest per parameter, GPU (CPU fp32): " + ", ".join(
+        f"{n} {gpu_p[n]:.2e} ({cpu_p[n]:.2e})" for n in top))
+    if (out["loss_rel"] > SPM_TRAIN_LOSS_TOL or out["rh_vs_plain"] > FP32_TOL
+            or out["grad_gap_gpu"] > max(2 * out["grad_gap_cpu"], SPM_TRAIN_TOL)):
+        raise SmokeError("the variant's train step on the GPU disagrees with the float64 CPU step")
+    return out
+
+
+def compare_classifier():
+    """Phase 28d: the SpatialMamba classifier (depths 1, 1, 1, 1, its
+    published widths 64-512, 10 classes) with seeded BN statistics, b1
+    224x224, GPU vs CPU, at d_state 1 (its default) and 16: the logits and
+    each stage's output (Backbone_SpatialMamba's return_features), rel <=
+    MODEL_TOL."""
+    from accunet_tpu_torch.models import build, init_parameters
+
+    out = {}
+    x = torch.from_numpy(np.random.default_rng(31).standard_normal((1, HW, HW, 3),
+                                                                   dtype=np.float32))
+    for name, d_state in (("SpatialMamba", 1), ("Backbone_SpatialMamba", 16)):
+        model = seeded_bns(init_parameters(
+            build(name, n_channels=3, num_classes=10, depths=(1, 1, 1, 1), d_state=d_state),
+            torch.Generator().manual_seed(0)), 31).eval()
+        gpu = copy.deepcopy(model).cuda()
+        with torch.inference_mode():
+            want = (model(x), *model(x, return_features=True))
+            got = (gpu(x.cuda()), *gpu(x.cuda(), return_features=True))
+        errs = [rel_err(p.cpu(), q)[1] for p, q in zip(got, want)]
+        out[f"{name}_n{d_state}"] = max(errs)
+        log(f"  {name} d_state {d_state} b1 {HW}x{HW}, GPU vs CPU: logits rel {errs[0]:.3e}, "
+            f"stages rel " + ", ".join(f"{e:.3e}" for e in errs[1:]) + f" (tol {MODEL_TOL:g})")
+        if max(errs) > MODEL_TOL:
+            raise SmokeError(f"{name} (d_state {d_state}) on the GPU disagrees with the CPU")
+    return out
+
+
+def spm_train_launches(steps, val_batches):
+    """Per train step of the variant: 8 rh forwards (2 blocks x 4 stages) and
+    their 8 rh backwards; per validation forward 8 rh forwards; nothing else
+    of the port's kernels (its depthwise convs are cuDNN's, as JAX's are
+    XLA's, so no dwconv2d_wgrad)."""
+    zero = dict.fromkeys(KERNELS, 0)
+    return {"train_steps": {**zero, "selective_scan_rh_fwd": RH_PER_FORWARD * steps,
+                            "selective_scan_rh_bwd": RH_PER_FORWARD * steps},
+            "validation": {**zero, "selective_scan_rh_fwd": RH_PER_FORWARD * val_batches}}
+
+
+def time_spm(model):
+    """Phase 29a/b: the variant b8 224x224 fp32 inference and train step
+    (multiclass_dice_ce over its four heads, backward, Adam), CUDA events,
+    10 iterations after 3 warm-up, with peak memory, the rh launches per
+    step and the copies SelectiveScanRhFn makes of a cotangent that reaches
+    it in other strides than h's; then BASELINE config 5's SpatialMambaBlock (b8 56x56, C 64,
+    d_state 16) forward in img/s."""
+    from accunet_tpu_torch.nn.ssm import SpatialMambaBlock
+    from accunet_tpu_torch.models import init_parameters
+    from accunet_tpu_torch.ops.kernels.selective_scan import (SelectiveScanRhFn,
+                                                              selective_scan_rh_bwd,
+                                                              selective_scan_rh_fwd)
+    from accunet_tpu_torch.train.engine import make_train_fns
+
+    g = torch.Generator("cuda").manual_seed(32)
+    x = torch.rand(B, HW, HW, 3, generator=g, device="cuda")
+    m = copy.deepcopy(model).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        ms = time_ms(lambda: m(x), iters=10, warmup=3)
+    out = {"inference_fp32": {"ms_per_batch": ms, "img_per_s": B * 1e3 / ms,
+                              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}}
+    fns = make_train_fns(m.train(), **spm_loss_fns())
+    batch = {"image": x, "mask": torch.randint(0, SPM_CLASSES + 1, (B, HW, HW, 1), generator=g,
+                                               device="cuda").float()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts = (selective_scan_rh_fwd.launches, selective_scan_rh_bwd.launches,
+              SelectiveScanRhFn.gh_copies)
+    ms = time_ms(lambda: fns.train_step(fns.state, batch), iters=10, warmup=3)
+    per_step = ((selective_scan_rh_fwd.launches - counts[0]) / 13,
+                (selective_scan_rh_bwd.launches - counts[1]) / 13,
+                (SelectiveScanRhFn.gh_copies - counts[2]) / 13)
+    _, stats = fns.train_step(fns.state, batch)
+    if not bool(torch.isfinite(stats["loss"])):
+        raise SmokeError("non-finite loss in the timed train step of the variant")
+    out["train_step_fp32"] = {"ms_per_step": ms, "img_per_s": B * 1e3 / ms,
+                              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del m, fns, batch
+    torch.cuda.empty_cache()
+    blk = init_parameters(SpatialMambaBlock(64, d_state=N_STATES),
+                          torch.Generator().manual_seed(1)).cuda().eval()
+    xb = torch.randn(B, 56, 56, 64, generator=g, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        ms = time_ms(lambda: blk(xb), iters=20, warmup=3)
+    out["config5_block_fp32"] = {"ms_per_batch": ms, "img_per_s": B * 1e3 / ms,
+                                 "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    i, t, c = out["inference_fp32"], out["train_step_fp32"], out["config5_block_fp32"]
+    log(f"  {SPM_VARIANT} b{B} {HW}x{HW} fp32 inference: {i['ms_per_batch']:.3f} ms/batch, "
+        f"{i['img_per_s']:.1f} img/s, peak {i['peak_mem_gib']:.2f} GiB; train step "
+        f"{t['ms_per_step']:.3f} ms/step, {t['img_per_s']:.1f} img/s, peak "
+        f"{t['peak_mem_gib']:.2f} GiB; per step selective_scan_rh_fwd {per_step[0]:g}, "
+        f"selective_scan_rh_bwd {per_step[1]:g}, copies of a strided cotangent of h "
+        f"{per_step[2]:g}")
+    log(f"  SpatialMambaBlock (BASELINE config 5: b{B} 56x56 C64 d_state 16) fp32 forward: "
+        f"{c['ms_per_batch']:.3f} ms/batch, {c['img_per_s']:.1f} img/s, peak "
+        f"{c['peak_mem_gib']:.2f} GiB")
+    del blk, xb
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_rh_scan():
+    """Phase 29c: at each of RH_SHAPES but the odd one, selective_scan_rh_fwd
+    (as inference runs it: no chunk states) and selective_scan_rh_bwd (as
+    the train step runs it: from the forward's chunk states, with the
+    cotangent laid out as (B, D, N, L), the order StateFusion's conv
+    backward hands it over; the kernel's own (B, L, D, N) layout beside it)
+    against their plain versions and the least time the card could take:
+    each input read once and each output written once at 3.35 TB/s (h or
+    gh, B x L x D x N floats, is most of it), or the fp32 operations (5 a
+    (t, n) forward, 18 backward) at 67 TFLOP/s. No single PyTorch call
+    computes the scan."""
+    from accunet_tpu_torch.ops.kernels import selective_scan as SS
+
+    g = torch.Generator("cuda").manual_seed(33)
+    times = {}
+    for name, b, l, d, n in RH_SHAPES[:-1]:
+        ops, gh = rh_inputs(g, b, l, d, n)
+        pairs = b * l * d * n
+        with torch.inference_mode():
+            _, states = SS.selective_scan_rh_fwd(*ops, True, save_states=True)
+        gh_dnl = gh.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+        cases = {
+            "selective_scan_rh_fwd": Case(
+                "selective_scan_rh_fwd", name, lambda: SS.selective_scan_rh_fwd(*ops, True),
+                lambda: SS.selective_scan_rh_fwd_plain(*ops, True), (*ops,), 5 * pairs),
+            "selective_scan_rh_bwd": Case(
+                "selective_scan_rh_bwd", name,
+                lambda: SS.selective_scan_rh_bwd(*ops, True, states, gh_dnl),
+                lambda: SS.selective_scan_rh_bwd_plain(*ops, True, gh_dnl),
+                (*ops, states, gh_dnl), 18 * pairs),
+            "selective_scan_rh_bwd.bldn": Case(
+                "selective_scan_rh_bwd", name,
+                lambda: SS.selective_scan_rh_bwd(*ops, True, states, gh),
+                lambda: SS.selective_scan_rh_bwd_plain(*ops, True, gh), (*ops, states, gh),
+                18 * pairs),
+        }
+        with torch.inference_mode():
+            for kname, case in cases.items():
+                out = case.run()
+                bound, bound_by = bound_ms(case, out)
+                del out
+                k_ms = time_ms(case.run)
+                p_ms = time_ms(case.plain, iters=3, warmup=1)
+                times[(kname, name)] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": None,
+                                        "bound_ms": bound, "bound_by": bound_by}
+                log(f"  {kname:24s} {name:7s} B{b} L{l:5d} D{d:3d} N{n:2d}: kernel {k_ms:8.3f} ms"
+                    f"   plain {p_ms:8.3f} ms   bound {bound:7.3f} ms ({bound_by}), "
+                    f"{100 * bound / k_ms:.1f}% of it")
+        del ops, gh, gh_dnl, states, cases
+        torch.cuda.empty_cache()
+    return times
+
+
 class Phases:
     """Logs each phase's title and, when the next begins (or `end()`), the
     seconds it took."""
@@ -1498,7 +2007,7 @@ def main() -> int:
         from accunet_tpu_torch.ops.kernels.scan import (
             dma_chunked_scan, linear_scan, linear_scan_reverse)
         from accunet_tpu_torch.ops.kernels.selective_scan import (
-            selective_scan_bwd, selective_scan_fwd)
+            selective_scan_bwd, selective_scan_fwd, selective_scan_rh_bwd, selective_scan_rh_fwd)
     except ImportError as e:
         print(f"chip_smoke: run from the root of the repository ({e})", file=sys.stderr)
         return 2
@@ -1570,7 +2079,9 @@ def main() -> int:
     phase("[13] Segmamba through accunet_tpu_torch.cli.train on cuda, then --resume auto")
     counters.update(linear_scan=linear_scan, linear_scan_reverse=linear_scan_reverse,
                     linear_scan_staged=dma_chunked_scan, selective_scan_fwd=selective_scan_fwd,
-                    selective_scan_bwd=selective_scan_bwd)
+                    selective_scan_bwd=selective_scan_bwd,
+                    selective_scan_rh_fwd=selective_scan_rh_fwd,
+                    selective_scan_rh_bwd=selective_scan_rh_bwd)
     sm_launches = run_train_cli(counters, "Segmamba", segmamba_train_launches)
     launches["segmamba_train_cli_steps"] = sm_launches["train_steps"]
     launches["segmamba_train_cli_validation"] = sm_launches["validation"]
@@ -1634,8 +2145,34 @@ def main() -> int:
     un_rates["unext_cmrf_train_step_fp32"] = time_train_step(cmrf, "UNext_CMRF",
                                                             {"dwconv2d_wgrad": dwconv2d_wgrad})
     times.update(time_kernels(un_cases))
-    phase.end()
     log("  " + json.dumps({"card": card, **un_rates, "unext_checks": un_checks}))
+
+    phase("[25] return-hidden selective scan vs its plain versions (the variant's stage shapes, "
+          "BASELINE config 5's block, N 1, an odd shape)")
+    worst.update(check_rh_scan())
+
+    phase("[26] SelectiveScanRhFn gradients vs autograd of the plain forward")
+    check_rh_autograd()
+
+    phase(f"[27] {SPM_VARIANT} through accunet_tpu_torch.cli.train on cuda (--n-classes "
+          f"{SPM_CLASSES}), then --resume auto")
+    spm_launches = run_train_cli(counters, SPM_VARIANT, spm_train_launches,
+                                 ("--n-classes", str(SPM_CLASSES)))
+    launches["spm_train_cli_steps"] = spm_launches["train_steps"]
+    launches["spm_train_cli_validation"] = spm_launches["validation"]
+
+    phase(f"[28] the variant: rh kernels vs plain (b{B} {HW}x{HW}), GPU vs CPU (b1 "
+          f"{SPM_CMP_HW}x{SPM_CMP_HW}), a b2 train step vs float64; the classifier GPU vs CPU")
+    spm = spm_model()
+    spm_checks = compare_spm(spm)
+    spm_checks["train_step"] = compare_spm_train_step()
+    spm_checks["classifier"] = compare_classifier()
+
+    phase("[29] Spatial-Mamba timing, the rh kernels at their shapes")
+    spm_rates = time_spm(spm)
+    times.update({(k, c, "float32"): v for (k, c), v in time_rh_scan().items()})
+    phase.end()
+    log("  " + json.dumps({"card": card, "spatial_mamba": spm_rates, "spm_checks": spm_checks}))
 
     # the shapes whose times the kernels line lists per kernel
     by_shape = {"hanc_block": ("cnv12", "cnv22", "cnv81", "cnv91"),
@@ -1646,7 +2183,8 @@ def main() -> int:
     timed_case = {"hanc_block": "cnv91", "respath_level": "rspth1.level1", "hanc_mix": "cnv72",
                   "dwconv2d_wgrad": "cnv72", "linear_scan": "stage0",
                   "linear_scan_staged": "stage0", "expand_dw": "cnv72.w_b2_512",
-                  "selective_scan_fwd": "stage0", "selective_scan_bwd": "stage0"}
+                  "selective_scan_fwd": "stage0", "selective_scan_bwd": "stage0",
+                  "selective_scan_rh_fwd": "stage0", "selective_scan_rh_bwd": "stage0"}
     # source, the TPU kernel it replaces, and the path whose run gives
     # `launches`: the inference kernels' own path is the eval CLI (they run
     # in the train CLI only in its validation forwards), the wgrad's is the
@@ -1660,7 +2198,9 @@ def main() -> int:
     # the fused kernels took their place: linear_scan (whose count adds its
     # reverse instantiation's; both given apart) and linear_scan_staged (JAX
     # never dispatches its TPU kernel either) count 0 on Segmamba's path and
-    # ran only in phases 10 and 14
+    # ran only in phases 10 and 14. The rh kernels' path is the Spatial-Mamba
+    # variant's train CLI (the forward also runs in its validation forwards);
+    # their entries add every shape of phase 29
     meta = {
         "hanc_block": ("accunet_tpu_torch/csrc/hanc_block.cu",
                        "accunet_tpu/ops/pallas/hanc_block.py:335", "eval_cli"),
@@ -1681,6 +2221,10 @@ def main() -> int:
                                "accunet_tpu/ops/pallas/scan.py:62", "segmamba_train_cli_steps"),
         "selective_scan_bwd": ("accunet_tpu_torch/csrc/selective_scan.cu",
                                "accunet_tpu/ops/pallas/scan.py:119", "segmamba_train_cli_steps"),
+        "selective_scan_rh_fwd": ("accunet_tpu_torch/csrc/selective_scan.cu",
+                                  "accunet_tpu/ops/pallas/scan.py:73", "spm_train_cli_steps"),
+        "selective_scan_rh_bwd": ("accunet_tpu_torch/csrc/selective_scan.cu",
+                                  "accunet_tpu/ops/pallas/scan.py:119", "spm_train_cli_steps"),
     }
 
     def count(c, name):
@@ -1712,10 +2256,16 @@ def main() -> int:
         if name == "linear_scan":
             kernels[-1]["launches_forward"] = launches[path]["linear_scan"]
             kernels[-1]["launches_reverse"] = launches[path]["linear_scan_reverse"]
-        if name.startswith("selective_scan"):
+        if name in ("selective_scan_fwd", "selective_scan_bwd"):
             kernels[-1]["unfused_ms"] = t["unfused_ms"]
             kernels[-1]["by_shape"] = {f"{c} float32": times[(name, c, "float32")]
                                        for c, *_ in FUSED_STAGES}
+        if name.startswith("selective_scan_rh"):
+            kernels[-1]["by_shape"] = {f"{c} float32": times[(name, c, "float32")]
+                                       for c, *_ in RH_SHAPES[:-1]}
+        if name == "selective_scan_rh_bwd":  # the cotangent in the kernel's own layout
+            kernels[-1]["by_shape_bldn_cotangent"] = {
+                f"{c} float32": times[(name + ".bldn", c, "float32")] for c, *_ in RH_SHAPES[:-1]}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -39,6 +39,14 @@ def test_pool_and_upsample(op, s):
     _both(getattr(jpool, op), getattr(tpool, op), _x((2, 8, 16, 5)), s=s)
 
 
+def test_avg_pool2d_floors_a_ragged_map():
+    """A window that does not divide the map drops the ragged edge, as JAX's
+    VALID reduce_window does: (1, 7, 7, 2) with s 2 gives (1, 3, 3, 2)."""
+    x = _x((1, 7, 7, 2))
+    assert tuple(tpool.avg_pool2d(torch.from_numpy(x), 2).shape) == (1, 3, 3, 2)
+    _both(jpool.avg_pool2d, tpool.avg_pool2d, x, s=2)
+
+
 def test_global_avg_pool():
     _both(jpool.global_avg_pool, tpool.global_avg_pool, _x((2, 8, 8, 6)))
 

@@ -145,9 +145,9 @@ def test_segmamba_init_follows_jax_initialisers():
     assert w.shape == (32, 1, 4) and 0 < float(w.abs().max()) <= cut
 
 
-@pytest.mark.parametrize("kwargs", [dict(use_gsc=True), dict(block="tmb"),
-                                    dict(text_fusion="hslca"), dict(deep_supervision=True),
-                                    dict(final_refine="fkan")])
+@pytest.mark.parametrize("kwargs", [dict(text_fusion="film"), dict(block="tmb"),
+                                    dict(text_fusion="hslca"), dict(text_fusion="crossattn"),
+                                    dict(final_refine="simple_mlp")])
 def test_segmamba_unported_axes_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_segmamba("Segmamba", 3, 1, **SIZE, **kwargs)
