@@ -47,6 +47,7 @@ SIGNATURES = {
     "accunet_selective_scan_bwd": [_P] * 22 + [_I] * 5 + [_P],
     "accunet_selective_scan_rh_fwd": [_P] * 7 + [_I] * 5 + [_P],
     "accunet_selective_scan_rh_bwd": [_P] * 14 + [_I] * 6 + [_P],
+    "accunet_selective_scan_rh_geometry": [_I] * 3 + [ctypes.POINTER(_I)],
 }
 
 

@@ -39,11 +39,22 @@ its VJP folded in: no C, D or z, and every hidden state written, as a
 that Spatial-Mamba's StructureAwareSSM fuses next. Its backward takes the
 cotangent of h in that layout, or in the (B, D, N, L) order of JAX's h, the
 order a conv's input gradient reaches it in, and recomputes h from the
-forward's chunk states (chunks of `32 * rh_chunk_steps(L)` steps) rather
-than reading the (B, L, D, N) h back.
+forward's chunk states rather than reading the (B, L, D, N) h back.
+Writing h bounds the forward: a thread scans one (b, d, n) chain, so each
+warp stores whole 128-byte runs of h, and the warps of a CTA split every
+chunk of 128 steps in time and join their transforms after one barrier; the
+backward, the same split with the sums over n and d in warp shuffles and dB
+summed over a cluster of CTAs, is bound by its instructions and registers
+(csrc/selective_scan.cu has the design). Their geometry (steps of a chunk,
+d of a dB partial) lives in the library: `rh_geometry` asks it before the
+wrappers allocate; `RH_CHUNK` and `rh_geometry_plain` mirror it for the
+plain versions and the CPU tests, and the card tests hold the two equal.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -54,7 +65,9 @@ from accunet_tpu_torch.ops.kernels.scan import linear_scan_plain
 LANES = 32  # a warp's lanes split a chunk into runs of chunk_steps(L) steps
 BWD_WARPS = 8  # d per CTA of the backward kernel: its dB, dC partials are per 8 d
 MAX_STATES = 32  # the kernels' largest N (shared memory holds two chunks of N rows of B, C)
-RH_WARPS = 8  # d per CTA of the return-hidden kernels: the backward's dB partials are per 8 d
+# the return-hidden kernels' chunk, mirrored from csrc/selective_scan.cu
+# (RhPlan) for the plain versions
+RH_CHUNK = 128
 
 
 def chunk_steps(length: int, n: int = 16) -> int:
@@ -73,15 +86,38 @@ def n_chunks(length: int, n: int = 16) -> int:
     return -(-length // (LANES * chunk_steps(length, n)))
 
 
-def rh_chunk_steps(length: int) -> int:
-    """Steps each lane of the return-hidden kernels scans in registers: 2
-    for L <= 64, else 4 (their shared memory stages a chunk of h, 32 x this
-    many steps of 8N floats)."""
-    return 2 if length <= 64 else 4
+class RhGeometry(NamedTuple):
+    """The return-hidden kernels' split of a (B, L, D, N) scan: steps of a
+    chunk (the saved states' unit), chunks, d of a dB partial (a backward
+    cluster's d), partials (part_b is (blocks, B, N, L); dB itself for 1)."""
+
+    chunk: int
+    n_chunks: int
+    dblock: int
+    blocks: int
+
+
+def rh_geometry_plain(d: int, length: int, n: int) -> RhGeometry:
+    """The library's `accunet_selective_scan_rh_geometry`, computed here: a
+    lane per (d, n) with n padded to a power of 2 of at least 4, so a CTA
+    holds 32 / that d, and a cluster 4 CTAs for N > 4 (for N <= 4 a CTA is
+    its own block)."""
+    lanes = max(1 << (n - 1).bit_length(), 4)
+    dblock = 32 // lanes * (1 if lanes == 4 else 4)
+    return RhGeometry(RH_CHUNK, -(-length // RH_CHUNK), dblock, -(-d // dblock))
+
+
+def rh_geometry(d: int, length: int, n: int) -> RhGeometry:
+    """The geometry the built library's rh kernels use (the source the
+    wrappers size their buffers by)."""
+    out = (ctypes.c_int * 4)()
+    _build.check(_build.load_library().accunet_selective_scan_rh_geometry(d, length, n, out),
+                 "accunet_selective_scan_rh_geometry")
+    return RhGeometry(*out)
 
 
 def rh_n_chunks(length: int) -> int:
-    return -(-length // (LANES * rh_chunk_steps(length)))
+    return -(-length // RH_CHUNK)
 
 
 def _delta(delta, delta_bias, delta_softplus):
@@ -286,6 +322,16 @@ def selective_scan_rh_fwd_plain(u, delta, A, B, delta_bias=None, delta_softplus=
     return _discretise(u, dl, A, B)[1]
 
 
+def selective_scan_rh_states_plain(u, delta, A, B, delta_bias=None, delta_softplus=False):
+    """Plain version of the forward's chunk states, in the inputs' dtype: the
+    state entering each chunk of RH_CHUNK steps, h at the step before it (0
+    for the first), (B, D, rh_n_chunks(L), N)."""
+    h = selective_scan_rh_fwd_plain(u, delta, A, B, delta_bias, delta_softplus)
+    first = torch.zeros_like(h[:, :1])
+    states = torch.cat([first, h[:, RH_CHUNK - 1::RH_CHUNK]], dim=1)[:, :rh_n_chunks(h.shape[1])]
+    return states.permute(0, 2, 1, 3)
+
+
 def selective_scan_rh_bwd_plain(u, delta, A, B, delta_bias, delta_softplus, gh):
     """Plain version of the return-hidden backward, in the inputs' dtype: the
     cotangent gh of h (B, L, D, N) -> (du, ddelta, dA, dB, dbias), dbias None
@@ -315,15 +361,15 @@ def selective_scan_rh_bwd_plain(u, delta, A, B, delta_bias, delta_softplus, gh):
 def selective_scan_rh_fwd(u, delta, A, B, delta_bias=None, delta_softplus=False,
                           save_states=False):
     """The return-hidden forward kernel: (h (B, L, D, N), chunk states (B,
-    D, rh_n_chunks(L), N) or None). Contiguous float32 operands; the chunk
-    states are written with `save_states` (for the backward) and are None on
-    the CPU."""
+    D, n_chunks, N) or None, n_chunks from `rh_geometry`). Contiguous
+    float32 operands; the chunk states are written with `save_states` (for
+    the backward) and are None on the CPU."""
     if u.device.type == "cpu":
         return selective_scan_rh_fwd_plain(u, delta, A, B, delta_bias, delta_softplus), None
     bsz, d, l, n = _check(u, delta, A, B, None, None, None, delta_bias)
     h = torch.empty(bsz, l, d, n, dtype=torch.float32, device=u.device)
-    states = (torch.empty(bsz, d, rh_n_chunks(l), n, dtype=torch.float32, device=u.device)
-              if save_states else None)
+    states = (torch.empty(bsz, d, rh_geometry(d, l, n).n_chunks, n, dtype=torch.float32,
+                          device=u.device) if save_states else None)
     err = _build.load_library().accunet_selective_scan_rh_fwd(
         u.data_ptr(), delta.data_ptr(), A.data_ptr(), B.data_ptr(), _ptr(delta_bias),
         h.data_ptr(), _ptr(states), bsz, d, l, n, int(delta_softplus), _build.stream_of(u))
@@ -348,7 +394,7 @@ def selective_scan_rh_bwd(u, delta, A, B, delta_bias, delta_softplus, states, gh
     (B, D, N, L)-contiguous tensor (`rh_layout_read`) -> (du, ddelta, dA,
     dB, dbias), dbias None without delta_bias. One launch of the kernel and
     one of the reduction it shares with selective_scan_bwd (dB over the
-    d-blocks, dA and dbias over b), both in a fixed order."""
+    clusters' partials, dA and dbias over b), both in a fixed order."""
     if u.device.type == "cpu":
         return selective_scan_rh_bwd_plain(u, delta, A, B, delta_bias, delta_softplus, gh)
     bsz, d, l, n = _check(u, delta, A, B, None, None, None, delta_bias)
@@ -357,14 +403,14 @@ def selective_scan_rh_bwd(u, delta, A, B, delta_bias, delta_softplus, states, gh
         _build.require(gh.permute(0, 2, 3, 1), "gh", (bsz, d, n, l), torch.float32, u.device)
     else:
         _build.require(gh, "gh", (bsz, l, d, n), torch.float32, u.device)
-    _build.require(states, "states", (bsz, d, rh_n_chunks(l), n), torch.float32, u.device)
-    blocks = -(-d // RH_WARPS)
+    geo = rh_geometry(d, l, n)
+    _build.require(states, "states", (bsz, d, geo.n_chunks, n), torch.float32, u.device)
     f32 = dict(dtype=torch.float32, device=u.device)
     du, ddelta = torch.empty_like(u), torch.empty_like(u)
     dA, dB = torch.empty(d, n, **f32), torch.empty(bsz, n, l, **f32)
     dbias = torch.empty(d, **f32) if delta_bias is not None else None
-    # per-d-block partials of dB (dB itself for one block), per-b ones of dA, dbias
-    part_b = torch.empty(blocks, bsz, n, l, **f32) if blocks > 1 else dB
+    # partials of dB per cluster of d (dB itself for one), per-b ones of dA, dbias
+    part_b = torch.empty(geo.blocks, bsz, n, l, **f32) if geo.blocks > 1 else dB
     part_bd = torch.empty(bsz, d, n + 2, **f32)
     err = _build.load_library().accunet_selective_scan_rh_bwd(
         u.data_ptr(), delta.data_ptr(), A.data_ptr(), B.data_ptr(), _ptr(delta_bias),

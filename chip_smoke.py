@@ -94,8 +94,10 @@ From the root of a checkout, with one CUDA device:
      the chunk states; selective_scan_rh_bwd: du, ddelta, dA, dB, dbias)
      against its plain versions at the four stage shapes of the Spatial-
      Mamba Segmamba variant b8 224x224, BASELINE config 5's block (b8 56x56,
-     C 64, d_state 16), N = 1 and an odd shape, and the backward bitwise on
-     a second call;
+     C 64, d_state 16), N = 1, shapes at the kernels' edges (L below a
+     chunk or past one, D past a CTA's or a cluster's d, N 1 and 3) and an
+     odd shape, the backward bitwise on a second call and from a (B, D, N,
+     L) cotangent, and the library's geometry against its plain mirror;
  26. checks SelectiveScanRhFn's gradients against autograd of the plain
      forward;
  27. runs the train entry point with --model
@@ -1492,10 +1494,16 @@ RH_PER_FORWARD = 8
 # (name, B, L, D, N): the variant's four stages; BASELINE config 5's block
 # (bench.py:118-148: SpatialMambaBlock b8, 56x56, C 64, d_state 16); the
 # classifier's default d_state 1 at its first stage (224x224: 56x56, C 64);
-# an odd shape (L 300: a partial chunk; D 13: a partial CTA of 8 d)
+# the kernels' edges: L below one 128-step chunk with D 20 (a partial
+# cluster of 8 d), N 1 with L 1000 (a partial chunk) and D 40 (5 CTAs of 8
+# d, no cluster), N 3 (lanes padded to 4) with L 129 (one step past a
+# chunk) and D 9 (a partial CTA); last, an odd shape (L 300: a partial
+# chunk; D 13: a partial CTA and cluster)
 RH_SHAPES = tuple((f"stage{i}", B, (HW // 2 >> i) ** 2, 2 * f, N_STATES)
                   for i, f in enumerate(SM_FEAT)) + (
-    ("config5", B, 56 * 56, 128, N_STATES), ("n1", B, 56 * 56, 128, 1), ("odd", 3, 300, 13, 16))
+    ("config5", B, 56 * 56, 128, N_STATES), ("n1", B, 56 * 56, 128, 1),
+    ("short", 2, 100, 20, N_STATES), ("n1_edge", 2, 1000, 40, 1), ("n3_edge", 2, 129, 9, 3),
+    ("odd", 3, 300, 13, 16))
 SPM_CMP_HW = 64
 SPM_TAPS = ("vit.gscs.0", "vit.stages.0.1", "vit.stages.3.1", "encoder5", "decoder1",
             "final_refine_kan_mlp")
@@ -1523,12 +1531,13 @@ def rh_inputs(g, b, l, d, n):
 
 
 def check_rh_scan():
-    """Phase 25: selective_scan_rh_fwd (h, and the chunk states against h at
-    each chunk's last step) and selective_scan_rh_bwd (du, ddelta, dA, dB,
-    dbias) against their plain versions at RH_SHAPES, softplus and bias on
-    as StructureAwareSSM runs them, rel <= FP32_TOL, and the backward's
+    """Phase 25: selective_scan_rh_fwd (h, and the chunk states against
+    selective_scan_rh_states_plain) and selective_scan_rh_bwd (du, ddelta,
+    dA, dB, dbias) against their plain versions at RH_SHAPES, softplus and
+    bias on as StructureAwareSSM runs them, rel <= FP32_TOL; the backward's
     outputs bitwise equal on a second call and with the cotangent laid out
-    as (B, D, N, L). Returns {kernel: max abs error vs plain}."""
+    as (B, D, N, L); the library's geometry (which sized the buffers) equal
+    to its plain mirror. Returns {kernel: max abs error vs plain}."""
     from accunet_tpu_torch.ops.kernels import selective_scan as SS
 
     g = torch.Generator("cuda").manual_seed(25)
@@ -1544,12 +1553,15 @@ def check_rh_scan():
         same = all(torch.equal(p, q) and torch.equal(p, r) for p, q, r in zip(grads, again, dnl))
         del again, dnl
         want = SS.selective_scan_rh_fwd_plain(*ops, True)
-        step = 32 * SS.rh_chunk_steps(l)
         f_errs = [rel_err(h, want)]
-        if states.shape[2] > 1:  # the state entering chunk c is h at step c * step - 1
-            f_errs.append(rel_err(states[:, :, 1:], want[:, step - 1::step][:, :states.shape[2] - 1]
-                                  .permute(0, 2, 1, 3)))
-        del want, h
+        del want
+        # the state entering each chunk; the geometry the wrappers sized it by
+        f_errs.append(rel_err(states, SS.selective_scan_rh_states_plain(*ops, True)))
+        geo = SS.rh_geometry(d, l, n)
+        if geo != SS.rh_geometry_plain(d, l, n) or states.shape[2] != geo.n_chunks:
+            raise SmokeError(f"rh geometry of {name}: the library's {geo}, the plain mirror's "
+                             f"{SS.rh_geometry_plain(d, l, n)}, states {tuple(states.shape)}")
+        del h
         torch.cuda.empty_cache()
         want = SS.selective_scan_rh_bwd_plain(*ops, True, gh)
         b_errs = {k: rel_err(p, q) for k, p, q in zip(("du", "ddelta", "dA", "dB", "dbias"),

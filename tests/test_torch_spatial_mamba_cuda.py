@@ -1,9 +1,11 @@
 """The return-hidden selective scan kernels (csrc/selective_scan.cu:
 selective_scan_rh_fwd / selective_scan_rh_bwd) against their plain versions
-on the card: L 1, L within one chunk of 64 steps, L not a multiple of the
-128-step chunk, D not a multiple of a CTA's 8 d and several d-blocks, N 1, 3,
-16 and 32, bias absent, softplus off; the chunk states; the backward bitwise
-on a second call and with the cotangent laid out as (B, D, N, L);
+on the card: L 1, L below one 128-step chunk, L a multiple of it and not,
+D not a multiple of a CTA's d (2 at N 16) or of a cluster's (8 at N 16),
+several clusters, N 1, 3 (lanes padded to 4), 16 and 32, bias absent,
+softplus off; the chunk states against selective_scan_rh_states_plain; the
+library's geometry against its plain mirror; the backward bitwise on a
+second call and with the cotangent laid out as (B, D, N, L);
 SelectiveScanRhFn's gradients against autograd of the plain forward, with a
 cotangent in h's strides, in (B, D, N, L) order (both read as they lie) and
 in another order (copied once); the wrappers' refusals.
@@ -27,7 +29,8 @@ pytestmark = pytest.mark.cuda
 # (B, L, D, N, bias, softplus)
 SHAPES = [(1, 1, 3, 16, True, True), (2, 40, 5, 16, True, True), (3, 300, 13, 16, True, True),
           (2, 129, 17, 1, True, True), (2, 1000, 8, 16, False, True),
-          (1, 520, 20, 32, True, False), (2, 77, 9, 3, False, False)]
+          (1, 520, 20, 32, True, False), (2, 77, 9, 3, False, False),
+          (2, 256, 40, 16, True, True), (2, 1000, 40, 1, True, True), (2, 129, 9, 3, True, True)]
 
 
 @pytest.fixture
@@ -74,12 +77,8 @@ def test_rh_kernels_match_plain(dev, b, l, d, n, bias, softplus):
     want = SS.selective_scan_rh_fwd_plain(*ops, softplus)
     _close(h, want)
     # the state entering chunk c is h at the chunk's step before it
-    step = 32 * SS.rh_chunk_steps(l)
     assert states.shape == (b, d, SS.rh_n_chunks(l), n)
-    _close(states[:, :, 0], torch.zeros_like(states[:, :, 0]))
-    if states.shape[2] > 1:
-        _close(states[:, :, 1:], want[:, step - 1::step][:, :states.shape[2] - 1]
-               .permute(0, 2, 1, 3))
+    _close(states, SS.selective_scan_rh_states_plain(*ops, softplus))
     wants = SS.selective_scan_rh_bwd_plain(*ops, softplus, gh)
     for name, got, ref, rep, other in zip(("du", "ddelta", "dA", "dB", "dbias"), grads, wants,
                                           again, dnl):
@@ -89,6 +88,12 @@ def test_rh_kernels_match_plain(dev, b, l, d, n, bias, softplus):
         _close(got, ref)
         assert torch.equal(got, rep), f"{name} differs on a second call"
         assert torch.equal(got, other), f"{name} differs with gh as (B, D, N, L)"
+
+
+@pytest.mark.parametrize("d,l,n", [(96, 12544, 16), (13, 300, 16), (128, 3136, 1), (9, 129, 3),
+                                   (20, 100, 16), (20, 1, 32), (7, 128, 5)])
+def test_rh_geometry_is_the_librarys(dev, d, l, n):
+    assert SS.rh_geometry(d, l, n) == SS.rh_geometry_plain(d, l, n)
 
 
 def test_rh_forward_without_states_matches(dev):

@@ -4,7 +4,7 @@ expand_dw, the selective scan) and the models that run them, for one tree of
 the port.
 
     python tools/kernel_ab.py [--tag NAME] [--json PATH] [--iters N] [--only KERNEL ...]
-                              [--sweep] [--graphs] [--models] [--segmamba] [--contig]
+                              [--sweep] [--graphs] [--models] [--segmamba] [--contig] [--rh]
 
 On one CUDA card, at chip_smoke.py's shapes (ACC_UNet, n_filts=32, b8
 224x224; expand_dw also at ACC_UNet_W b2 512x512), in fp32 (TF32 off) and
@@ -41,7 +41,21 @@ bf16:
     of its 16 selective_scan forwards (CUDA events around each call);
   * with --contig: for one ACC_UNet b8 224x224 train step, whether each
     depthwise backward met an NHWC-contiguous x and g (if not, its
-    `.contiguous()` copied the map).
+    `.contiguous()` copied the map);
+  * with --rh (alone, unless --only names other kernels too): the
+    return-hidden scan at RH_SHAPES (the Spatial-Mamba variant's four stages
+    at b8 224x224, BASELINE config 5's block, N 1, and shapes at the
+    kernels' edges), softplus and bias on as StructureAwareSSM runs them:
+    selective_scan_rh_fwd as inference runs it (no chunk states) and
+    selective_scan_rh_bwd from the forward's chunk states with the cotangent
+    of h laid out as (B, D, N, L) (the order the model hands over) and as
+    (B, L, D, N), each beside its plain version and its bytes bound (each
+    input read once and each output written once at 3.35 TB/s), with the
+    error of h and of the five gradients against the plain versions; then
+    the Spatial-Mamba variant (2 classes) b8 224x224 fp32 inference and
+    train step (multiclass Dice+CE, Adam) with their peak memory and rh
+    launches, and config 5's SpatialMambaBlock (b8 56x56, C 64, d_state 16)
+    forward.
 Times are CUDA events over --iters calls after 3 warm-up; with --graphs the
 kernel calls (not the models) replay from a CUDA graph, so that a call's
 host time does not show between short kernels. Prints one line
@@ -65,7 +79,8 @@ import torch
 import torch.nn.functional as F
 
 B, HW, NF = 8, 224, 32
-KERNELS = ("dwconv2d_wgrad", "hanc_block", "respath_level", "expand_dw", "selective_scan")
+KERNELS = ("dwconv2d_wgrad", "hanc_block", "respath_level", "expand_dw", "selective_scan",
+           "selective_scan_rh")
 # name, map side, C
 WGRAD = [("cnv12", HW, 3 * NF), ("cnv52", HW // 16, 48 * NF), ("cnv61", HW // 8, 48 * NF),
          ("cnv72", HW // 4, 136 * NF), ("unext.block1_0", HW // 16, 160),
@@ -81,6 +96,17 @@ RESPATH = [("rspth1.level0", HW, NF, False), ("rspth1.level1", HW, NF, True),
 EXPAND = [("cnv72.b8_224", (B, HW // 4, HW // 4, 4 * NF)), ("cnv72.w_b2_512", (2, 128, 128, 4 * NF))]
 # Segmamba b8 224x224's BiMamba stages: name, L, d_inner (N 16)
 SCAN = [(f"stage{i}", (HW // 2 >> i) ** 2, 2 * f) for i, f in enumerate((48, 96, 192, 384))]
+# the return-hidden scan (name, B, L, D, N): the Spatial-Mamba variant's stages
+# at b8 224x224; BASELINE config 5's block (b8 56x56, C 64); the classifier's
+# d_state 1; L below one 128-step chunk with D 20 (a partial cluster of 8 d);
+# N 1 with D 40 and L 1000 (a partial chunk, 5 CTAs); N 3 (lanes padded to
+# 4) with L 129 and D 9 (chip_smoke.py's RH_SHAPES but the odd one)
+RH_SHAPES = tuple((f"stage{i}", B, (HW // 2 >> i) ** 2, 2 * f, 16)
+                  for i, f in enumerate((48, 96, 192, 384))) + (
+    ("config5", B, 56 * 56, 128, 16), ("n1", B, 56 * 56, 128, 1), ("short", 2, 100, 20, 16),
+    ("n1_edge", 2, 1000, 40, 1), ("n3_edge", 2, 129, 9, 3))
+SPM_VARIANT = "Segmamba_hybrid_gsc_KAN_PE_ds_CrossAttn_HSLCA_SpatialMamba_no_text"
+HBM_BYTES_PER_S = 3.35e12
 
 
 GRAPHS = False  # --graphs: replay the calls from a CUDA graph (no host time between them)
@@ -392,6 +418,122 @@ def sweep_rows(iters: int, emit, only=KERNELS):
         torch.cuda.empty_cache()
 
 
+def rh_operands(g, b, l, d, n):
+    """The rh kernels' operands as StructureAwareSSM hands them (u =
+    silu(N(0, 1)), delta N(0, 0.5^2) before its softplus, A = -(1..N), B ~
+    N(0, 1), bias ~ N(0, 0.1^2)) and a cotangent gh ~ N(0, 1) of h (B, L,
+    D, N)."""
+    def rn(*shape, s=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * s
+
+    ops = (F.silu(rn(b, d, l)), rn(b, d, l, s=0.5),
+           -torch.arange(1, n + 1, device="cuda", dtype=torch.float32).expand(d, n).contiguous(),
+           rn(b, n, l), rn(d, s=0.1))
+    return ops, rn(b, l, d, n)
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def rh_rows(iters: int, emit):
+    """selective_scan_rh_fwd / _bwd at RH_SHAPES, fp32 (CUDA-graph replays
+    with --graphs), beside the plain versions and the bytes bound."""
+    from accunet_tpu_torch.ops.kernels import selective_scan as SS
+
+    g = torch.Generator(device="cuda").manual_seed(29)
+    for name, b, l, d, n in RH_SHAPES:
+        ops, gh = rh_operands(g, b, l, d, n)
+        gh_dnl = gh.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+        with torch.inference_mode():
+            h, states = SS.selective_scan_rh_fwd(*ops, True, save_states=True)
+            want = SS.selective_scan_rh_fwd_plain(*ops, True)
+            h_err = rel_err(h, want)
+            del want
+            grads = SS.selective_scan_rh_bwd(*ops, True, states, gh_dnl)
+            wants = SS.selective_scan_rh_bwd_plain(*ops, True, gh)
+            g_err = max(rel_err(p, q) for p, q in zip(grads, wants))
+            same = all(torch.equal(p, q) for p, q in
+                       zip(grads, SS.selective_scan_rh_bwd(*ops, True, states, gh)))
+            del wants
+            fwd_bytes = nbytes(*ops, h)
+            bwd_bytes = nbytes(*ops, states, gh, *grads)
+            del h, grads
+            torch.cuda.empty_cache()
+            fwd_ms = time_ms(lambda: SS.selective_scan_rh_fwd(*ops, True), iters)
+            bwd_ms = time_ms(lambda: SS.selective_scan_rh_bwd(*ops, True, states, gh_dnl), iters)
+            bldn_ms = time_ms(lambda: SS.selective_scan_rh_bwd(*ops, True, states, gh), iters)
+            plain_fwd = time_ms(lambda: SS.selective_scan_rh_fwd_plain(*ops, True), 3, False)
+            plain_bwd = time_ms(lambda: SS.selective_scan_rh_bwd_plain(*ops, True, gh_dnl), 3,
+                                False)
+        fb, bb = fwd_bytes / HBM_BYTES_PER_S * 1e3, bwd_bytes / HBM_BYTES_PER_S * 1e3
+        emit({"kernel": "selective_scan_rh", "shape": f"{name} B{b} L{l} D{d} N{n}",
+              "dtype": "float32", "fwd_ms": fwd_ms, "bwd_dnl_ms": bwd_ms, "bwd_bldn_ms": bldn_ms,
+              "plain_fwd_ms": plain_fwd, "plain_bwd_ms": plain_bwd, "fwd_bound_ms": fb,
+              "bwd_bound_ms": bb, "fwd_pct_of_bound": 100 * fb / fwd_ms,
+              "bwd_pct_of_bound": 100 * bb / bwd_ms, "h_rel_err": h_err, "grads_rel_err": g_err,
+              "bwd_layouts_bitwise": same, "states_shape": list(states.shape)})
+        del ops, gh, gh_dnl, states
+        torch.cuda.empty_cache()
+
+
+def spm_rows(iters: int, emit):
+    """The Spatial-Mamba variant (2 classes) b8 224x224 fp32 inference and
+    train step, and config 5's SpatialMambaBlock forward, each with its peak
+    memory; the rh launches per forward and per step."""
+    from accunet_tpu_torch.models import build, init_parameters
+    from accunet_tpu_torch.nn.ssm import SpatialMambaBlock
+    from accunet_tpu_torch.ops.kernels import selective_scan as SS
+    from accunet_tpu_torch.train import losses as L
+    from accunet_tpu_torch.train import metrics as M
+    from accunet_tpu_torch.train.engine import make_train_fns
+
+    model = init_parameters(build(SPM_VARIANT, in_chans=3, out_chans=2),
+                            torch.Generator().manual_seed(0)).cuda().eval()
+    g = torch.Generator("cuda").manual_seed(32)
+    x = torch.rand(B, HW, HW, 3, generator=g, device="cuda")
+    steps = max(iters // 2, 3)
+
+    def launches(fn):
+        before = (SS.selective_scan_rh_fwd.launches, SS.selective_scan_rh_bwd.launches)
+        fn()
+        torch.cuda.synchronize()
+        return (SS.selective_scan_rh_fwd.launches - before[0],
+                SS.selective_scan_rh_bwd.launches - before[1])
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        ms = time_ms(lambda: model(x), steps)
+        fwd, _ = launches(lambda: model(x))
+    emit({"kernel": "model", "shape": f"{SPM_VARIANT} b{B} {HW}x{HW} forward", "dtype": "float32",
+          "ms": ms, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "rh_fwd_launches": fwd})
+    fns = make_train_fns(model.train(), loss_fn=L.multiclass_dice_ce,
+                         dice_show=L.multiclass_dice_show, iou_fn=M.multiclass_batch_iou)
+    batch = {"image": x, "mask": torch.randint(0, 3, (B, HW, HW, 1), generator=g,
+                                               device="cuda").float()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(lambda: fns.train_step(fns.state, batch), steps, graphs=False)
+    fwd, bwd = launches(lambda: fns.train_step(fns.state, batch))
+    emit({"kernel": "model", "shape": f"{SPM_VARIANT} b{B} {HW}x{HW} train step",
+          "dtype": "float32", "ms": ms, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "rh_fwd_launches": fwd, "rh_bwd_launches": bwd})
+    del model, fns, batch
+    torch.cuda.empty_cache()
+    blk = init_parameters(SpatialMambaBlock(64, d_state=16),
+                          torch.Generator().manual_seed(1)).cuda().eval()
+    xb = torch.randn(B, 56, 56, 64, generator=g, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        ms = time_ms(lambda: blk(xb), iters, graphs=False)
+    emit({"kernel": "model", "shape": f"SpatialMambaBlock b{B} 56x56 C64 d_state16 forward "
+          "(BASELINE config 5)", "dtype": "float32", "ms": ms,
+          "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+
+
 def model_rows(iters: int, emit):
     from accunet_tpu_torch.models import build, init_parameters
     from accunet_tpu_torch.train.engine import make_train_fns
@@ -457,14 +599,16 @@ def main(argv=None) -> int:
     ap.add_argument("--tag", default="", help="a name for this tree, copied into every row")
     ap.add_argument("--json", default=None, help="write the rows here")
     ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--only", nargs="+", choices=KERNELS, default=KERNELS,
+    ap.add_argument("--only", nargs="+", choices=KERNELS, default=None,
                     help="time (and sweep) these kernels alone")
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--graphs", action="store_true")
     ap.add_argument("--models", action="store_true")
     ap.add_argument("--segmamba", action="store_true")
     ap.add_argument("--contig", action="store_true")
+    ap.add_argument("--rh", action="store_true")
     args = ap.parse_args(argv)
+    only = args.only or (("selective_scan_rh",) if args.rh else KERNELS)
     if not torch.cuda.is_available():
         print("kernel_ab: needs a CUDA device", file=sys.stderr)
         return 2
@@ -487,10 +631,14 @@ def main(argv=None) -> int:
 
     global GRAPHS
     GRAPHS = args.graphs
-    kernel_rows(args.iters, emit, args.only)
+    kernel_rows(args.iters, emit, only)
+    if "selective_scan_rh" in only:
+        rh_rows(args.iters, emit)
     if args.sweep:
-        sweep_rows(args.iters, emit, args.only)
+        sweep_rows(args.iters, emit, only)
     GRAPHS = False
+    if args.rh:
+        spm_rows(args.iters, emit)
     if args.models:
         model_rows(args.iters, emit)
     if args.segmamba:
