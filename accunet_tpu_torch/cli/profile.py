@@ -1,7 +1,8 @@
 """Profiling entry point of the port (counterpart of accunet_tpu/cli/profile.py).
 
     python -m accunet_tpu_torch.cli.profile --model ACC_UNet --img 224 --batch 8 \
-        [--dtype bfloat16] [--steps 5] [--device cuda] [--train]
+        [--dtype bfloat16] [--steps 5] [--device cuda] [--train] [--channels 3] \
+        [--trace DIR]
     python -m accunet_tpu_torch.cli.profile --model Segmamba [--train]
     python -m accunet_tpu_torch.cli.profile --n-classes 2 [--train] \
         --model Segmamba_hybrid_gsc_KAN_PE_ds_CrossAttn_HSLCA_SpatialMamba_no_text
@@ -19,8 +20,8 @@ out_chans=--n-classes (1 by default), as the train CLIs build them; with
 
 Runs the model with seeded random weights on one CUDA device, in eval mode
 (a forward per step) or with --train a train step (train-mode forward, the
-model's configured loss, backward, Adam; float32 only), and prints, for one
-batch of 3-channel images of the given size:
+model's configured loss, backward, Adam), and prints, for one batch of
+--channels-channel images of the given size:
   - the parameter count;
   - ms per step and img/s: CUDA events over --steps steps after warm-up;
   - module spans: CUDA events in forward pre/post hooks on the model's
@@ -32,6 +33,14 @@ batch of 3-channel images of the given size:
     profiler's own host cost stretches its window, not the kernels), device
     kernels per step, device time per kernel family and the top device
     kernels.
+With --trace DIR the profiled steps also run one `record_function` range per
+top-level module (utils/trace_report.py `module_ranges`), the Chrome trace
+goes to DIR/trace.json, and the report's per-module and top-op tables
+(`module_times`, `top_ops`) print, with the report's device time per step
+beside the CUDA-event time per step of the same profiled window.
+--dtype bfloat16 builds the model with dtype=torch.bfloat16 (fp32 parameters
+cast at use, as the train CLI trains under train.compute_dtype=bfloat16);
+SegMamba models take no dtype and run in fp32, as in JAX.
 fp32 runs with TF32 off in cuDNN and matmuls, as chip_smoke.py times it.
 Raises when CUDA is unavailable; it never profiles on the CPU.
 """
@@ -41,6 +50,7 @@ from __future__ import annotations
 import argparse
 import ast
 import contextlib
+import os
 from collections import defaultdict
 
 # device-kernel name fragment -> family (first match wins)
@@ -109,6 +119,10 @@ def main(argv=None):
                     help="SegMamba models' head width; > 1 trains with multiclass_dice_ce")
     ap.add_argument("--train", action="store_true",
                     help="profile a train step instead of a forward")
+    ap.add_argument("--channels", type=int, default=3, help="input channels")
+    ap.add_argument("--trace", default=None,
+                    help="write the profiled steps' Chrome trace (with module ranges) to "
+                         "DIR/trace.json and print its report")
     args = ap.parse_args(argv)
 
     import torch
@@ -129,27 +143,30 @@ def main(argv=None):
                                                               selective_scan_rh_fwd)
     from accunet_tpu_torch.train import losses as L
     from accunet_tpu_torch.train import metrics as M
+    from accunet_tpu_torch.utils import trace_report
 
     device = torch.device(args.device)
     if device.type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: profiling needs an available CUDA device")
-    if args.train and args.dtype != "float32":
-        raise ValueError("--train profiles the float32 train step only")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dtype = getattr(torch, args.dtype)
     kwargs = ast.literal_eval(args.model_kwargs) if args.model_kwargs else {}
-    if args.model.startswith("Segmamba"):  # SegMamba builders, as in JAX
-        model = build_model(args.model, in_chans=3, out_chans=args.n_classes, **kwargs)
+    if args.model.startswith("Segmamba"):  # SegMamba builders, as in JAX: no dtype
+        model = build_model(args.model, in_chans=args.channels, out_chans=args.n_classes, **kwargs)
+        if dtype != torch.float32:
+            print(f"{args.model} takes no compute dtype and runs in float32, as in JAX")
+            args.dtype, dtype = "float32", torch.float32
     else:
-        model = build_model(args.model, n_channels=3, n_classes=1, **kwargs)
+        model = build_model(args.model, n_channels=args.channels, n_classes=1, dtype=dtype,
+                            **kwargs)
     init_parameters(model, torch.Generator().manual_seed(0))
-    model = model.to(device=device, dtype=dtype).eval()
+    model = model.to(device).eval()
     gen = torch.Generator(device).manual_seed(1)
-    x = torch.randn(args.batch, args.img, args.img, 3, device=device, generator=gen)
+    x = torch.randn(args.batch, args.img, args.img, args.channels, device=device, generator=gen)
     n_params = sum(p.numel() for p in model.parameters())
     kind = "train step" if args.train else "forward"
-    print(f"model={args.model} input={args.batch}x{args.img}x{args.img}x3 "
+    print(f"model={args.model} input={args.batch}x{args.img}x{args.img}x{args.channels} "
           f"{args.dtype} {kind} on {torch.cuda.get_device_name(device)}, TF32 off")
     print(f"params: {n_params / 1e6:.2f} M")
     if args.train:
@@ -219,7 +236,8 @@ def main(argv=None):
               + ", ".join(f"{n} {t:.3f}" for t, n in span_ms)
               + f"; sum {sum(t for t, _ in span_ms):.3f}")
 
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ranges = trace_report.module_ranges(model) if args.trace else contextlib.nullcontext()
+        with ranges, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             window = timed(args.steps)
 
     # device work only: the optimizer's step also shows as a device-side user
@@ -241,9 +259,28 @@ def main(argv=None):
     print("top device kernels (ms per step, launches per step):")
     for name, (t, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:15]:
         print(f"  {t:8.3f} ms  x{n / args.steps:4.0f}  {name[:100]}")
-    return {"ms_per_batch": ms, "window_ms": window, "busy_ms": busy, "busy_share": busy / ms,
-            "kernels_per_forward": len(dev_events) / args.steps,
-            "families_ms": dict(by_family), "spans_ms": {n: t for t, n in span_ms}}
+    out = {"ms_per_batch": ms, "window_ms": window, "busy_ms": busy, "busy_share": busy / ms,
+           "kernels_per_forward": len(dev_events) / args.steps,
+           "families_ms": dict(by_family), "spans_ms": {n: t for t, n in span_ms}}
+    if args.trace:
+        os.makedirs(args.trace, exist_ok=True)
+        path = os.path.join(args.trace, "trace.json")
+        prof.export_chrome_trace(path)
+        modules = trace_report.module_times(args.trace, steps=args.steps)
+        ops = trace_report.top_ops(args.trace, n=15, steps=args.steps)
+        print(f"trace written to {path}; per-module device time (ms per {kind}):")
+        for mod, t in modules[:25]:
+            print(f"  {t:8.3f}  {mod}")
+        print("top device ops (ms per step, module):")
+        for name, t, mod in ops:
+            print(f"  {t:8.3f}  {name[:60]:60s} {mod}")
+        trace_ms = modules[-1][1]
+        print(f"trace report: {trace_ms:.3f} ms of device work per {kind} (kernel and copy "
+              f"times summed) beside {window:.3f} ms per {kind} by CUDA events over the same "
+              f"profiled window")
+        out.update(trace_dir=args.trace, trace_ms=trace_ms, trace_modules=modules,
+                   trace_top_ops=ops)
+    return out
 
 
 if __name__ == "__main__":

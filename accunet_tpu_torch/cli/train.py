@@ -13,8 +13,17 @@ the config; each train step runs the dwconv2d_wgrad kernel once per
 shifted-MLP block. `--synthetic` trains on a generated random npy folder instead
 of dataset directories. Seeding: numpy, the loaders and the model's initialisation (a
 torch.Generator) all take cfg.train.seed. `--device cuda` (the default)
-raises when CUDA is unavailable; it never falls back to the CPU. Training
-runs in float32.
+raises when CUDA is unavailable; it never falls back to the CPU.
+
+`--set train.compute_dtype=bfloat16` trains every non-SegMamba model in bf16,
+as JAX builds them with `dtype=jnp.bfloat16` (accunet_tpu/cli/train.py:261-268):
+the layers compute in bf16 with the fp32 parameters cast at use, Adam's state
+stays fp32, the BatchNorms take fp32 statistics and the losses take the
+model's fp32 output; on the card hanc_mix and the depthwise backward's
+dwconv2d_wgrad run their bf16 paths. SegMamba models train in fp32 under
+either setting, as JAX builds them without a dtype; the run logs one line
+saying so. `--vis-dir` saves the first validation batch's input, mask and
+prediction images every `--vis-frequency` epochs.
 """
 
 from __future__ import annotations
@@ -81,6 +90,10 @@ def main(argv=None):
                     help="frozen split file (one sample id per line) restricting --train-dir")
     ap.add_argument("--val-split", default=None,
                     help="frozen split file restricting --val-dir")
+    ap.add_argument("--vis-dir", default=None,
+                    help="save input/gt/pred PNGs of the first val batch every --vis-frequency "
+                         "epochs")
+    ap.add_argument("--vis-frequency", type=int, default=10)
     ap.add_argument("--set", nargs="*", default=[], help="dotted config overrides")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--device", default="cuda", help="torch device, e.g. cuda, cuda:1, cpu")
@@ -123,9 +136,10 @@ def main(argv=None):
     if args.ckpt_dir:
         cfg.train.ckpt_dir = args.ckpt_dir
     cfg = cfg.override(parse_overrides(args.set))
-    if cfg.train.compute_dtype != "float32":
-        raise ValueError(f"train.compute_dtype={cfg.train.compute_dtype!r}: the port trains "
-                         "in float32 only")
+    compute_dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}.get(
+        cfg.train.compute_dtype)
+    if compute_dtype is None:
+        raise ValueError(f"train.compute_dtype={cfg.train.compute_dtype!r}: float32 or bfloat16")
 
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     np.random.seed(cfg.train.seed)
@@ -153,9 +167,13 @@ def main(argv=None):
     n_cls = args.n_classes
     n_ch = sample["image"].shape[-1]
     if args.model.lower().startswith("segmamba"):  # SegMamba builders, as in JAX
+        if compute_dtype != torch.float32:
+            logging.info("%s trains in float32: SegMamba models take no compute dtype, as in "
+                         "JAX", args.model)
         model = build_model(args.model, in_chans=n_ch, out_chans=n_cls, **cfg.model.kwargs)
     else:
-        model = build_model(args.model, n_channels=n_ch, n_classes=n_cls, **cfg.model.kwargs)
+        model = build_model(args.model, n_channels=n_ch, n_classes=n_cls, dtype=compute_dtype,
+                            **cfg.model.kwargs)
     init_parameters(model, torch.Generator().manual_seed(cfg.train.seed))
     model = model.to(device)
 
@@ -207,6 +225,8 @@ def main(argv=None):
             ckpt_dir=cfg.train.ckpt_dir,
             early_stop_patience=cfg.train.early_stop_patience,
             check_numerics=args.check_numerics,
+            vis_dir=args.vis_dir,
+            vis_frequency=args.vis_frequency,
             **resume_kw,
         )
     finally:

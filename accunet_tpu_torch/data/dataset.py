@@ -9,11 +9,15 @@ Experiments/Load_Dataset.py:
   * `<root>/img/*.png` + `<root>/labelcol/*_segmentation.png|.png` — the
     earlier PNG generation, greyscale or RGB, values scaled to [0,1].
 
-Resizing is numpy, without cv2: the bilinear resize samples half-pixel
-centres (cv2's INTER_LINEAR, within 1.1e-7); the nearest resize (masks) takes
-source index min(floor(i * (1.0 / (size / n))), n - 1) in float64, the rule of
-cv2's INTER_NEAREST, which the JAX package calls, pixel for pixel. The
-native loader of the JAX package is not ported yet.
+Resizing is without cv2: the bilinear resize samples half-pixel centres
+(cv2's INTER_LINEAR, within 1.1e-7); the nearest resize (masks) takes source
+index min(floor(i * (1.0 / (size / n))), n - 1) in float64, the rule of cv2's
+INTER_NEAREST, which the JAX package calls, pixel for pixel. The resizes, the
+standardisation and the mask binarisation run as the native ops of
+data/native_loader.py (C++ through ctypes, built by g++ at first use) when
+they build, else as numpy: the resizes and the binarisation give the same
+arrays either way, the standardisation agrees to float64 rounding (its sums
+run in another order), within 1e-6 after the cast to float32.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ from typing import Sequence
 
 import numpy as np
 
+from accunet_tpu_torch.data import native_loader
+
 
 def _resize_image(img: np.ndarray, size: int, nearest: bool) -> np.ndarray:
     """2D resize to (size, size): nearest as cv2's INTER_NEAREST (the scale
@@ -30,6 +36,8 @@ def _resize_image(img: np.ndarray, size: int, nearest: bool) -> np.ndarray:
     with half-pixel centres."""
     if img.shape[0] == size and img.shape[1] == size:
         return img
+    if native_loader.available():
+        return native_loader.resize2d(img, size, nearest)
     h, w = img.shape[:2]
     if nearest:
         yi = np.minimum(np.floor(np.arange(size) * (1.0 / (size / h))).astype(int), h - 1)
@@ -123,8 +131,10 @@ class SegmentationDataset:
             img = img[self.channel_idx]
         img = _resize_image(img.astype(np.float32), self.image_size, False)
         # torch .std() is unbiased (ddof=1), as the reference loader uses
-        mean, std = img.mean(), img.std(ddof=1)
-        img = (img - mean) / (std + 1e-8)
+        if native_loader.available():
+            img = native_loader.standardize(img)
+        else:
+            img = (img - img.mean()) / (img.std(ddof=1) + 1e-8)
         img = img[..., None]
         mask = np.load(os.path.join(self.mask_dir, fname)).astype(np.float32)
         mask = _resize_image(mask, self.image_size, True)
@@ -137,7 +147,8 @@ class SegmentationDataset:
         else:
             img, mask = self._load_png(fname)
         if self.binarize_mask:
-            mask = (mask > 0).astype(np.int32)
+            mask = native_loader.binarize(mask) if native_loader.available() else mask > 0
+            mask = mask.astype(np.int32)
         else:
             mask = mask.astype(np.int32)
         return {"image": img.astype(np.float32), "label": mask}, fname

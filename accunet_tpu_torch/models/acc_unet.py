@@ -29,6 +29,16 @@ stem cnv11 (E = 9), i.e. cnv31-cnv72. The fused blocks keep `hanc_block`.
 `remat=True` (default off, as in JAX :73, :92-95) checkpoints each HANCBlock,
 ResPath and MLFC while gradients are recorded: their activations are
 recomputed in the backward instead of kept.
+
+`dtype` is the compute type (JAX's `dtype=`, :77): the input is cast to it
+and every layer computes in it, with the parameters (fp32 in training, and
+Adam's state with them) cast at use; the BatchNorms take fp32 statistics and
+the output is float32, as in JAX. `dtype=torch.bfloat16` is how the train
+CLI trains under `train.compute_dtype=bfloat16`; the fused eval kernels
+then run their bf16 paths. `dtype=None` computes in the parameters' own
+type, so `model.to(torch.bfloat16)` also runs bf16 inference, with the same
+results as fp32 parameters of the same values under `dtype=torch.bfloat16`
+(tests/test_torch_bf16_train.py).
 """
 
 from __future__ import annotations
@@ -75,10 +85,12 @@ class ACCUNet(nn.Module):
     def __init__(self, n_channels: int = 3, n_classes: int = 1, n_filts: int = 32,
                  variant: str = "base", final_sigmoid: bool = True,
                  wide_decoder_block: bool = True, remat: bool = False,
-                 hybrid_expand_dw: bool = False, hybrid_e_min: int = 2048):
+                 hybrid_expand_dw: bool = False, hybrid_e_min: int = 2048,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         f = n_filts
         self.n_classes, self.final_sigmoid, self.remat = n_classes, final_sigmoid, remat
+        self.dtype = dtype
         mode = {"base": "full", "lite": "lite", "w": "w"}[variant]
 
         def hanc(n_in, n_out, k, inv=3, level12=False, defer=False):
@@ -135,7 +147,7 @@ class ACCUNet(nn.Module):
         """x (B, H, W, n_channels), H and W divisible by 16 ->
         (B, H, W, out_ch) float32."""
         r = self._run
-        x = x.to(self.out.weight.dtype)
+        x = x.to(self.out.weight.dtype if self.dtype is None else self.dtype)
         x2 = r(self.cnv12, r(self.cnv11, x))
         x3 = r(self.cnv22, r(self.cnv21, max_pool2d(x2, 2)))
         x4 = r(self.cnv32, r(self.cnv31, max_pool2d(x3, 2)))

@@ -21,7 +21,9 @@ unext_cmrf.py:254-256); `skip` "add" | "mlfc" (the port's MLFC over t1..t4)
 | "dense" (the UNet++-style H{i}__{j} heads refine t1..t3). Every ShiftMLP's
 depthwise conv takes its weight gradient from the `dwconv2d_wgrad` kernel, so
 a train step launches it once per ShiftedBlock (4); an eval forward runs no
-hand-written kernel.
+hand-written kernel. `dtype` is the compute type, as ACCUNet's (JAX's
+`dtype=`): None computes in the parameters' type, torch.bfloat16 in bf16
+with the fp32 parameters cast at use; the output is float32.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ from torch import nn
 
 from accunet_tpu_torch.nn.acc_blocks import MLFC, BatchNorm
 from accunet_tpu_torch.nn.cmrf_blocks import CMRF
-from accunet_tpu_torch.nn.unext_blocks import OverlapPatchEmbed, ShiftedBlock
+from accunet_tpu_torch.nn.unext_blocks import LayerNorm, OverlapPatchEmbed, ShiftedBlock
 from accunet_tpu_torch.ops.conv import conv1x1, conv2d
 from accunet_tpu_torch.ops.pooling import max_pool2d
 from accunet_tpu_torch.ops.resize import resize_bilinear, upsample_bilinear_2x
@@ -64,7 +66,8 @@ class UNext(nn.Module):
                  stem_dims: Sequence[int] = (16, 32, 128),
                  embed_dims: Sequence[int] = (128, 160, 256), final_sigmoid: bool = True,
                  encoder: str = "conv", decoder: str = "conv", skip: str = "add",
-                 pool: str = "max", token_block: str = "shift"):
+                 pool: str = "max", token_block: str = "shift",
+                 dtype: torch.dtype | None = None):
         super().__init__()
         for axis, value, ported in (("encoder", encoder, ("conv", "cmrf")),
                                     ("decoder", decoder, ("conv", "cmrf")),
@@ -76,7 +79,7 @@ class UNext(nn.Module):
         s1, s2, s3 = stem_dims
         e0, e1, e2 = embed_dims
         self.n_classes, self.final_sigmoid = n_classes, final_sigmoid
-        self.skip = skip
+        self.skip, self.dtype = skip, dtype
         enc = _conv3 if encoder == "conv" else CMRF
         self.encoder1 = enc(n_channels, s1)
         self.encoder2 = enc(s1, s2)
@@ -85,10 +88,10 @@ class UNext(nn.Module):
             self.ebn1, self.ebn2, self.ebn3 = BatchNorm(s1), BatchNorm(s2), BatchNorm(s3)
         self.patch_embed3 = OverlapPatchEmbed(s3, e1)
         self.block1 = nn.ModuleList([ShiftedBlock(e1)])
-        self.norm3 = nn.LayerNorm(e1, eps=1e-5)
+        self.norm3 = LayerNorm(e1, eps=1e-5)
         self.patch_embed4 = OverlapPatchEmbed(e1, e2)
         self.block2 = nn.ModuleList([ShiftedBlock(e2)])
-        self.norm4 = nn.LayerNorm(e2, eps=1e-5)
+        self.norm4 = LayerNorm(e2, eps=1e-5)
         if skip == "dense":
             for name, cin, cout in (("H0_1", s1 + s2, s1), ("H1_1", s2 + s3, s2),
                                     ("H2_1", s3 + e1, s3), ("H0_2", 2 * s1 + s2, s1),
@@ -100,11 +103,11 @@ class UNext(nn.Module):
         self.decoder1 = _conv3(e2, e1)
         self.dbn1 = BatchNorm(e1)
         self.dblock1 = nn.ModuleList([ShiftedBlock(e1)])
-        self.dnorm3 = nn.LayerNorm(e1, eps=1e-5)
+        self.dnorm3 = LayerNorm(e1, eps=1e-5)
         self.decoder2 = _conv3(e1, e0)
         self.dbn2 = BatchNorm(e0)
         self.dblock2 = nn.ModuleList([ShiftedBlock(e0)])
-        self.dnorm4 = nn.LayerNorm(e0, eps=1e-5)
+        self.dnorm4 = LayerNorm(e0, eps=1e-5)
         dec = _conv3 if decoder == "conv" else CMRF
         self.decoder3 = dec(e0, s2)
         self.decoder4 = dec(s2, s1)
@@ -136,7 +139,7 @@ class UNext(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x (B, H, W, n_channels) -> float32 (B, H', W', n_classes)."""
-        x = x.to(self.final.weight.dtype)
+        x = x.to(self.final.weight.dtype if self.dtype is None else self.dtype)
         t1 = self._stem(x, 1)
         t2 = self._stem(t1, 2)
         t3 = self._stem(t2, 3)

@@ -16,6 +16,14 @@ block takes the unfused path; its HANC layers still run `hanc_mix` forward
 (`HancMixFn`) and its depthwise convs take their weight gradient from the
 `dwconv2d_wgrad` kernel. On a CPU tensor each kernel wrapper runs its plain
 PyTorch version.
+
+The blocks compute in the type of their input (bfloat16 or float32): the
+parameters stay as they are (fp32 in training) and are cast at use, as
+flax's `dtype=` does, and every BatchNorm takes its statistics and
+normalises in fp32 and returns the input's type. A gradient through a
+fused eval kernel (Seg-Grad-CAM) is the VJP of the kernel's plain version,
+recomputed from the saved inputs (`HancBlockFn`, `RespathLevelFn`,
+`ExpandDwFn`).
 """
 
 from __future__ import annotations
@@ -26,11 +34,11 @@ import torch
 from torch import nn
 
 from accunet_tpu_torch.ops.activation import lrelu
-from accunet_tpu_torch.ops.conv import conv1x1, conv2d, depthwise_conv2d
-from accunet_tpu_torch.ops.kernels.expand_dw import expand_dw
-from accunet_tpu_torch.ops.kernels.hanc_block import HANCBlockWeights, fold, hanc_block
+from accunet_tpu_torch.ops.conv import conv1x1, conv2d, depthwise_conv2d, linear
+from accunet_tpu_torch.ops.kernels.expand_dw import ExpandDwFn
+from accunet_tpu_torch.ops.kernels.hanc_block import HANCBlockWeights, HancBlockFn, fold
 from accunet_tpu_torch.ops.kernels.hanc_mix import HancMixFn
-from accunet_tpu_torch.ops.kernels.respath import respath_level
+from accunet_tpu_torch.ops.kernels.respath import RespathLevelFn
 from accunet_tpu_torch.ops.pooling import (
     avg_pool2d,
     global_avg_pool,
@@ -52,7 +60,10 @@ class BatchNorm(nn.BatchNorm2d):
     running = (1 - momentum) * running + momentum * batch (momentum 0.1,
     flax's 0.9, by default) for the mean and the *biased* variance, in fp32
     (torch's BatchNorm2d would take the unbiased one). CMRF's ConvBNAct
-    takes eps 1e-3 and momentum 0.03 (flax 0.97).
+    takes eps 1e-3 and momentum 0.03 (flax 0.97). A bfloat16 input is
+    normalised in fp32 with fp32 statistics and returned in bfloat16, as
+    flax's BatchNorm(dtype=bfloat16) does (its `_compute_stats` reduces in
+    fp32).
 
     `frozen_stats` skips that update; the model sets it while activation
     checkpointing recomputes a block, so a step updates the statistics once."""
@@ -94,8 +105,9 @@ class ChannelSELayer(nn.Module):
         self.bn = BatchNorm(num_channels)
 
     def gate(self, squeezed: torch.Tensor) -> torch.Tensor:
-        """(B, C) channel means -> (B, C) sigmoid gate."""
-        return torch.sigmoid(self.fc2(lrelu(self.fc1(squeezed))))
+        """(B, C) channel means -> (B, C) sigmoid gate, in squeezed's type."""
+        h = lrelu(linear(squeezed, self.fc1.weight, self.fc1.bias))
+        return torch.sigmoid(linear(h, self.fc2.weight, self.fc2.bias))
 
     def forward(self, x: torch.Tensor, squeezed: torch.Tensor | None = None) -> torch.Tensor:
         # `squeezed` lets a fused producer hand over the channel means from
@@ -126,8 +138,10 @@ class HANCLayer(nn.Module):
             y = conv1x1(x, self.cnv.weight, self.cnv.bias)
         else:
             # the kernel takes NHWC-contiguous maps; a cuDNN conv upstream
-            # may hand back another layout
-            y = HancMixFn.apply(x.contiguous(), self.mix_weight(), self.cnv.bias, self.k)
+            # may hand back another layout. The weights in x's type, as JAX
+            # casts them before its hanc_mix
+            y = HancMixFn.apply(x.contiguous(), self.mix_weight().to(x.dtype),
+                                self.cnv.bias.to(x.dtype), self.k)
         return lrelu(self.bn(y))
 
 
@@ -199,7 +213,8 @@ class HANCBlock(nn.Module):
         if isinstance(inp, PendingSE):
             inp = inp.apply()
         if self.takes_hybrid():
-            x = expand_dw(inp.contiguous(), *self.expand_dw_args())
+            w1, b1, wd, bd, bn1, bn2 = self.expand_dw_args()
+            x = ExpandDwFn.apply(inp.contiguous(), w1, b1, wd, bd, *bn1, *bn2)
         else:
             x = self.front_unfused(inp)
         x = self.hnc(x)
@@ -245,8 +260,8 @@ class HANCBlock(nn.Module):
         if isinstance(inp, PendingSE):
             pre = torch.stack([inp.gs, inp.tb.expand_as(inp.gs)], dim=1).contiguous()
             inp = inp.y
-        y, sums = hanc_block(inp.contiguous(), self.folded_weights(), self.k, pre)
-        squeezed = sums.sum(dim=1) / (y.shape[1] * y.shape[2])
+        y, sums = HancBlockFn.apply(inp.contiguous(), pre, self.k, *self.folded_weights())
+        squeezed = sums / (y.shape[1] * y.shape[2])
         if not self.defer_se:
             return self.sqe(y, squeezed=squeezed)
         g = self.sqe.gate(squeezed.to(y.dtype))
@@ -287,10 +302,10 @@ class ResPath(nn.Module):
         for conv, bn, sqe in zip(self.convs, self.bns, self.sqes):
             s_bn, t_bn = bn.scale_shift()
             w = conv.weight.float().permute(2, 3, 1, 0).contiguous()  # HWIO
-            y, x, sums = respath_level(x, w, s_bn, t_bn + conv.bias.float() * s_bn,
-                                       y, gate, s_se, t_se)
+            y, x, sums = RespathLevelFn.apply(x, w, s_bn, t_bn + conv.bias.float() * s_bn,
+                                              y, gate, s_se, t_se)
             # this level's SE gate, applied by the next level's kernel
-            gate = sqe.gate((sums.sum(dim=1) / hw).to(dt)).float()
+            gate = sqe.gate((sums / hw).to(dt)).float()
             s_se, t_se = sqe.bn.scale_shift()
         se = lrelu((y * gate[:, None, None, :].to(dt)) * s_se.to(dt) + t_se.to(dt))
         return self.sqe(lrelu(self.bn(x + se)))
@@ -315,12 +330,12 @@ class _MLFCFusedConv(nn.Module):
         w = self.conv1.weight.reshape(self.conv1.weight.shape[:2]).t()  # (sum, f_lvl)
         y, off = None, 0
         for src, t in enumerate(ins):
-            term = t @ w[off:off + self.filts[src]]
+            term = t @ w[off:off + self.filts[src]].to(t.dtype)
             off += self.filts[src]
             if src > self.lvl:
                 term = upsample_nearest(term, 2 ** (src - self.lvl))
             y = term if y is None else y + term
-        y = self.batchnorm(y + self.conv1.bias)
+        y = self.batchnorm(y + self.conv1.bias.to(y.dtype))
         return self.sqe(lrelu(y))
 
 
@@ -370,7 +385,8 @@ class MLFC(nn.Module):
         for lvl in range(4):
             y = getattr(self, f"cnv_mrg{lvl + 1}")[i](interleave_channels(fused[lvl], xs[lvl]))
             if self.mode == "w":
-                y = y * self.W + xs[lvl] * (1 - self.W)
+                wb = self.W.to(y.dtype)
+                y = y * wb + xs[lvl] * (1 - wb)
             else:
                 y = y + xs[lvl]
             merged.append(lrelu(getattr(self, f"bns_mrg{lvl + 1}")[i](y)))

@@ -11,6 +11,9 @@ either way. Attribute names follow the JAX tree (`state_dict_from_jax`).
   * ShiftMLP: shift H -> fc1 -> DWConv -> exact GELU -> shift W -> fc2;
   * ShiftedBlock: x + ShiftMLP(LayerNorm(x));
   * OverlapPatchEmbed: a k3 s2 p1 conv, then LayerNorm.
+Each block computes in its input's type with its parameters cast at use;
+LayerNorm normalises in fp32 and returns the input's type, as flax's
+LayerNorm(dtype=bfloat16) does.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from accunet_tpu_torch.ops.conv import depthwise_conv2d
+from accunet_tpu_torch.ops.conv import depthwise_conv2d, linear
 
 
 def _torch_chunk_sizes(c: int, n: int) -> list[int]:
@@ -40,6 +43,16 @@ def axial_shift(x: torch.Tensor, axis: int, shift_size: int = 5) -> torch.Tensor
     chunks = xp.split(_torch_chunk_sizes(x.shape[-1], shift_size), dim=-1)
     return torch.cat([c.narrow(axis, pad - s, n)
                       for c, s in zip(chunks, range(-pad, pad + 1))], dim=-1)
+
+
+class LayerNorm(nn.LayerNorm):
+    """nn.LayerNorm over the last axis, computed in fp32 (float64 stays
+    float64) and returned in the input's type."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ct = torch.promote_types(x.dtype, torch.float32)
+        return F.layer_norm(x.to(ct), self.normalized_shape, self.weight.to(ct),
+                            self.bias.to(ct), self.eps).to(x.dtype)
 
 
 class DWConv(nn.Module):
@@ -63,15 +76,15 @@ class ShiftMLP(nn.Module):
         self.fc2 = nn.Linear(hidden_features, out_features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.fc1(axial_shift(x, 1, self.shift_size))
+        x = linear(axial_shift(x, 1, self.shift_size), self.fc1.weight, self.fc1.bias)
         x = F.gelu(self.dwconv(x))
-        return self.fc2(axial_shift(x, 2, self.shift_size))
+        return linear(axial_shift(x, 2, self.shift_size), self.fc2.weight, self.fc2.bias)
 
 
 class ShiftedBlock(nn.Module):
     def __init__(self, dim: int, mlp_ratio: float = 1.0):
         super().__init__()
-        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.norm2 = LayerNorm(dim, eps=1e-5)
         self.mlp = ShiftMLP(dim, int(dim * mlp_ratio), dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -83,8 +96,10 @@ class OverlapPatchEmbed(nn.Module):
         super().__init__()
         self.proj = nn.Conv2d(in_chans, embed_dim, patch_size, stride=stride,
                               padding=patch_size // 2)
-        self.norm = nn.LayerNorm(embed_dim, eps=1e-5)
+        self.norm = LayerNorm(embed_dim, eps=1e-5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.proj(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
-        return self.norm(y)
+        p = self.proj
+        y = F.conv2d(x.permute(0, 3, 1, 2), p.weight.to(x.dtype), p.bias.to(x.dtype),
+                     p.stride, p.padding)
+        return self.norm(y.permute(0, 2, 3, 1))

@@ -2,8 +2,10 @@
 
 Counterpart of accunet_tpu/ops/conv.py. Weights keep PyTorch's layouts
 (Conv2d OIHW, ConvTranspose2d (I, O, kh, kw)) so reference checkpoints load
-unchanged; activations stay NHWC. `F.conv2d` runs on the channels_last NCHW
-view of an NHWC tensor, so no data moves around the call.
+unchanged; activations stay NHWC. Every op computes in its input's type and
+casts the weights to it at use (fp32 parameters under a bf16 input).
+`F.conv2d` runs on the channels_last NCHW view of an NHWC tensor, so no data
+moves around the call.
 """
 
 from __future__ import annotations
@@ -42,6 +44,13 @@ def depthwise_conv2d(x: torch.Tensor, weight: torch.Tensor,
     """Depthwise 'SAME' convolution, odd kernels. weight (C, 1, kh, kw). Its
     weight gradient is the `dwconv2d_wgrad` kernel (ops/kernels/dwconv2d)."""
     return DepthwiseConv2dFn.apply(x, weight, bias)
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor,
+           bias: torch.Tensor | None = None) -> torch.Tensor:
+    """nn.Linear's product over the last axis, in x's type: weight (out, in)
+    and bias cast at use, as flax's Dense(dtype=...) does."""
+    return F.linear(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype))
 
 
 def conv1x1(x: torch.Tensor, weight: torch.Tensor,

@@ -176,8 +176,11 @@ dwconv2d_wgrad.launches = 0
 
 class DepthwiseConv2dFn(torch.autograd.Function):
     """y = depthwise SAME conv of x (B, H, W, C) with weight (C, 1, kh, kw)
-    plus bias (C,) or None. The weight gradient is `dwconv2d_wgrad` (the
-    kernel on a CUDA tensor, its plain version on a CPU tensor)."""
+    plus bias (C,) or None, in x's type (the weight and bias cast at use).
+    The weight gradient is `dwconv2d_wgrad` (the kernel on a CUDA tensor,
+    its plain version on a CPU tensor), fp32 from a bf16 x and g as out of
+    the TPU kernel (:127); the bias gradient is rounded to g's type first,
+    as in JAX."""
 
     @staticmethod
     def forward(ctx, x, weight, bias):
@@ -211,5 +214,6 @@ class DepthwiseConv2dFn(torch.autograd.Function):
         elif want_db:
             db = g.sum(dim=(0, 1, 2))
         if db is not None:
-            db = db.to(ctx.bias_dtype)
+            # rounded to the cotangent's type, as JAX's `_bwd` does (:189)
+            db = db.to(g.dtype).to(ctx.bias_dtype)
         return dx, dw, db

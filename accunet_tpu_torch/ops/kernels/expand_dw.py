@@ -27,6 +27,8 @@ expand's 3xTF32 products and the store of the E-wide y, in bf16 the bytes.
 In bf16 w1 and wd are rounded to bf16 (JAX's kernel casts them), the
 expand's product is rounded to bf16 before BN1, u is bf16 and y =
 bf16(lrelu(acc*s2 + t2)); `expand_dw_plain` rounds at the same points.
+`ExpandDwFn` gives the kernel a gradient: the VJP of `expand_dw_plain`,
+recomputed from the saved inputs (as `HancBlockFn`).
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import torch.nn.functional as F
 
 from accunet_tpu_torch.ops.activation import lrelu
 from accunet_tpu_torch.ops.kernels import _build
+from accunet_tpu_torch.ops.kernels.hanc_mix import plain_vjp
 
 
 # the kernel's plans: the 8x16 tile's x halo resident for the CTA's life, or
@@ -159,3 +162,22 @@ def _launch(x, w1, b1, wd, bd, bn1, bn2, *, plan):
 
 
 expand_dw.launches = 0
+
+
+class ExpandDwFn(torch.autograd.Function):
+    """`expand_dw` with a gradient: apply(x, w1, b1, wd, bd, s1, t1, s2, t2),
+    the BN pairs flattened (b1, bd may be None). Forward: the kernel on a
+    CUDA tensor, the plain version on a CPU tensor. Backward: the VJP of
+    `expand_dw_plain`, recomputed from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, wd, bd, s1, t1, s2, t2):
+        ctx.save_for_backward(x, w1, b1, wd, bd, s1, t1, s2, t2)
+        return expand_dw(x, w1, b1, wd, bd, (s1, t1), (s2, t2))
+
+    @staticmethod
+    def backward(ctx, gy):
+        def plain(x, w1, b1, wd, bd, s1, t1, s2, t2):
+            return expand_dw_plain(x, w1, b1, wd, bd, (s1, t1), (s2, t2))
+
+        return tuple(plain_vjp(plain, ctx.saved_tensors, ctx.needs_input_grad, (gy,)))

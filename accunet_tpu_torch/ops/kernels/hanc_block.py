@@ -33,6 +33,11 @@ wd, wh and w3 to bf16, as JAX's wrapper does (`.astype(dt)`,
 accunet_tpu/ops/pallas/hanc_block.py:430-433), and the kernel rounds the
 interior to bf16 where JAX's kernel keeps it in bf16; `hanc_block_reference`
 rounds at the same points.
+
+`HancBlockFn` gives the kernel a gradient (Seg-Grad-CAM differentiates the
+eval model): its backward is the VJP of `hanc_block_reference`, recomputed
+from the saved inputs, the idiom of `HancMixFn`; the TPU package has no
+backward kernel either.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ import torch.nn.functional as F
 
 from accunet_tpu_torch.ops.activation import lrelu
 from accunet_tpu_torch.ops.kernels import _build
+from accunet_tpu_torch.ops.kernels.hanc_mix import plain_vjp
 from accunet_tpu_torch.ops.pooling import avg_pool2d, max_pool2d, upsample_nearest
 
 MAX_CIN = 128  # widest nf == cin the kernel's tiles take
@@ -243,3 +249,30 @@ def hanc_block(x: torch.Tensor, p: HANCBlockWeights, k: int,
 
 
 hanc_block.launches = 0
+
+
+class HancBlockFn(torch.autograd.Function):
+    """`hanc_block` with a gradient: apply(x, pre, k, *weights) with
+    `weights` the ten tensors of a HANCBlockWeights -> (y, sums (B, cout)),
+    the per-tile sums already reduced over the tiles. Forward: the kernel on
+    a CUDA tensor, the plain version on a CPU tensor. Backward: the VJP of
+    the plain version (x, the chained `pre` and the folded weights),
+    recomputed from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, pre, k, *weights):
+        ctx.save_for_backward(x, pre, *weights)
+        ctx.k = k
+        y, sums = hanc_block(x, HANCBlockWeights(*weights), k, pre)
+        return y, sums.sum(dim=1)
+
+    @staticmethod
+    def backward(ctx, gy, gs):
+        def plain(x, pre, *weights):
+            y, sums = hanc_block_reference(x, HANCBlockWeights(*weights), ctx.k, pre)
+            return y, sums[:, 0]
+
+        x_grad, pre_grad, *w_grads = plain_vjp(
+            plain, ctx.saved_tensors, ctx.needs_input_grad[:2] + ctx.needs_input_grad[3:],
+            (gy, gs))
+        return x_grad, pre_grad, None, *w_grads

@@ -94,7 +94,9 @@ class HancMixFn(torch.autograd.Function):
     """`hanc_mix` with a gradient. Forward: the kernel on a CUDA tensor, the
     plain version on a CPU tensor. Backward: the VJP of the plain formula,
     recomputed from the saved inputs, as JAX `_bwd` (hanc.py:183-186) does;
-    the TPU package has no backward kernel either."""
+    the TPU package has no backward kernel either. From bf16 inputs the
+    plain formula computes in fp32 and the gradients come back in the inputs'
+    types (JAX's `_bwd` differentiates its formula in bf16)."""
 
     @staticmethod
     def forward(ctx, x, w, bias, k):
@@ -104,11 +106,21 @@ class HancMixFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        saved = ctx.saved_tensors
-        need = ctx.needs_input_grad[:3]
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
-            y = hanc_mix_reference(*leaves, ctx.k)
-            wanted = [t for t, n in zip(leaves, need) if n]
-            grads = iter(torch.autograd.grad(y, wanted, g))
-        return (*(next(grads) if n else None for n in need), None)
+        grads = plain_vjp(lambda x, w, b: hanc_mix_reference(x, w, b, ctx.k),
+                          ctx.saved_tensors, ctx.needs_input_grad[:3], (g,))
+        return (*grads, None)
+
+
+def plain_vjp(plain, saved, need, cotangents) -> list:
+    """The backward of a kernel's autograd function: the VJP of its plain
+    version `plain(*saved)` (a tensor or a tuple of them) with the given
+    cotangents, recomputed from the saved inputs. A gradient for each saved
+    input flagged in `need`; None for the others, for a None input and for
+    an input that does not reach the outputs."""
+    with torch.enable_grad():
+        leaves = [t if t is None else t.detach().requires_grad_(n) for t, n in zip(saved, need)]
+        outs = plain(*leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        wanted = [t for t, n in zip(leaves, need) if n and t is not None]
+        grads = iter(torch.autograd.grad(outs, wanted, cotangents, allow_unused=True))
+    return [next(grads) if n and t is not None else None for t, n in zip(leaves, need)]

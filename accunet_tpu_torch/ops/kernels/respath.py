@@ -27,7 +27,9 @@ bytes (one read of x and y_{i-1}, one write of x_i and y_i) and the 3xTF32
 products about equally, in bf16 the bytes. In bf16 the weights, gate, s_se
 and t_se are rounded to bf16 (JAX's kernel casts them), x_i is bf16 and
 y_i = lrelu(bf16(acc*s_bn + t_bn)), as in JAX; `respath_level_reference`
-rounds at the same points.
+rounds at the same points. `RespathLevelFn` gives the kernel a gradient:
+the VJP of the plain version, recomputed from the saved inputs (as
+`HancBlockFn`).
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ import torch.nn.functional as F
 
 from accunet_tpu_torch.ops.activation import lrelu
 from accunet_tpu_torch.ops.kernels import _build
+from accunet_tpu_torch.ops.kernels.hanc_mix import plain_vjp
 
 K_MAX = 128  # input channels in one K block; the resident plans need C <= K_MAX
 # the kernel's plans: pixel rows of the tile (16 columns), output channels a
@@ -156,3 +159,27 @@ def _launch(x, w, s_bn, t_bn, y_prev=None, gate=None, s_se=None, t_se=None, *, p
 
 
 respath_level.launches = 0
+
+
+class RespathLevelFn(torch.autograd.Function):
+    """`respath_level` with a gradient: apply(x, w, s_bn, t_bn, y_prev,
+    gate, s_se, t_se) -> (y_i, x_i, sums (B, C)), the per-tile sums already
+    reduced over the tiles (x_i is x itself at level 0). Forward: the kernel
+    on a CUDA tensor, the plain version on a CPU tensor. Backward: the VJP of
+    the plain version with respect to every tensor input, recomputed from the
+    saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, w, s_bn, t_bn, y_prev=None, gate=None, s_se=None, t_se=None):
+        args = (x, w, s_bn, t_bn, y_prev, gate, s_se, t_se)
+        ctx.save_for_backward(*args)
+        y, x_new, sums = respath_level(*args)
+        return y, x_new, sums.sum(dim=1)
+
+    @staticmethod
+    def backward(ctx, gy, gx, gs):
+        def plain(*args):
+            y, x_new, sums = respath_level_reference(*args)
+            return y, x_new, sums[:, 0]
+
+        return tuple(plain_vjp(plain, ctx.saved_tensors, ctx.needs_input_grad, (gy, gx, gs)))

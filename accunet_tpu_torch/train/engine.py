@@ -10,7 +10,9 @@ Counterpart of accunet_tpu/train/engine.py, without a mesh and without orbax:
     before the update, as JAX does. Stats stay tensors on the device; the
     epoch loop reads them once per epoch.
   * `run_epoch` (optional per-batch non-finite-loss check) and `fit`
-    (best-dice checkpointing, early stopping, resume).
+    (best-dice checkpointing, early stopping, resume; epoch scalars to
+    TensorBoard through tensorboardX when it imports; the first validation
+    batch's predictions as images every `vis_frequency` epochs).
   * checkpoints are `epoch_NNNN.pth.tar` files from `torch.save` holding
     {epoch, best_dice, best_epoch, step, state_dict, optimizer}, written to a
     temporary name and renamed into place, so an interrupted save never
@@ -231,32 +233,76 @@ def fit(
     start_epoch: int = 0,
     best_dice: float = -1.0,
     best_epoch: int = 0,
+    tensorboard_dir: str | None = None,
+    vis_dir: str | None = None,
+    vis_frequency: int = 10,
 ):
     """Epoch loop with best-dice checkpointing and early stopping.
+
+    `tensorboard_dir` logs train/ and val/ loss, dice and iou per epoch
+    through tensorboardX's SummaryWriter, or warns once and logs nothing
+    when tensorboardX does not import (as JAX's fit). `vis_dir` saves the
+    first validation batch's input, mask and prediction (`predict_step`)
+    every `vis_frequency` epochs (eval/visualize.py).
 
     Resume: pass the restored checkpoint's meta as start_epoch / best_dice /
     best_epoch and training continues at epoch start_epoch+1 with the
     early-stop counter and the best-model record intact (a worse epoch after
     the resume never replaces the best). The latest epoch is always saved and
     retention keeps best + latest."""
+    writer = None
+    if tensorboard_dir:
+        try:
+            from tensorboardX import SummaryWriter
+        except ImportError:
+            logger.warning("tensorboardX unavailable; skipping TB logging")
+        else:
+            writer = SummaryWriter(tensorboard_dir)
     state = fns.state
     history = []
-    for epoch in range(start_epoch + 1, epochs + 1):
-        state, tr = run_epoch(fns.train_step, state, train_loader_factory(), True,
-                              check_numerics=check_numerics)
-        _, va = run_epoch(fns.eval_step, state, val_loader_factory(), False)
-        history.append({"epoch": epoch, "train": tr, "val": va})
-        if log_every:
-            logger.info(
-                "epoch %d train loss %.4f dice %.4f | val loss %.4f dice %.4f",
-                epoch, tr.get("loss", 0), tr.get("dice", 0), va.get("loss", 0), va.get("dice", 0),
-            )
-        if va.get("dice", 0) > best_dice:
-            best_dice, best_epoch = va["dice"], epoch
-        if ckpt_dir:
-            save_checkpoint(ckpt_dir, state, epoch, best_dice, best_epoch)
-            prune_checkpoints(ckpt_dir, {best_epoch, epoch})
-        if va.get("dice", 0) <= best_dice and epoch - best_epoch >= early_stop_patience:
-            logger.info("early stopping at epoch %d (best %d)", epoch, best_epoch)
-            break
+    try:
+        for epoch in range(start_epoch + 1, epochs + 1):
+            state, tr = run_epoch(fns.train_step, state, train_loader_factory(), True,
+                                  check_numerics=check_numerics)
+            _, va = run_epoch(fns.eval_step, state, val_loader_factory(), False)
+            history.append({"epoch": epoch, "train": tr, "val": va})
+            if log_every:
+                logger.info(
+                    "epoch %d train loss %.4f dice %.4f | val loss %.4f dice %.4f",
+                    epoch, tr.get("loss", 0), tr.get("dice", 0), va.get("loss", 0),
+                    va.get("dice", 0),
+                )
+            if writer is not None:
+                for split, stats in (("train", tr), ("val", va)):
+                    for k in ("loss", "dice", "iou"):
+                        if k in stats:
+                            writer.add_scalar(f"{split}/{k}", stats[k], epoch)
+            if vis_dir and epoch % vis_frequency == 0:
+                _save_val_predictions(fns, state, val_loader_factory, vis_dir, epoch)
+            if va.get("dice", 0) > best_dice:
+                best_dice, best_epoch = va["dice"], epoch
+            if ckpt_dir:
+                save_checkpoint(ckpt_dir, state, epoch, best_dice, best_epoch)
+                prune_checkpoints(ckpt_dir, {best_epoch, epoch})
+            if va.get("dice", 0) <= best_dice and epoch - best_epoch >= early_stop_patience:
+                logger.info("early stopping at epoch %d (best %d)", epoch, best_epoch)
+                break
+    finally:
+        if writer is not None:
+            writer.close()
     return state, history
+
+
+def _save_val_predictions(fns: TrainStepFns, state: TrainState, val_loader_factory,
+                          vis_dir: str, epoch: int) -> None:
+    """The first validation batch's (input, mask, prediction) images, up to
+    4 (the reference saves every vis_frequency epochs)."""
+    from accunet_tpu_torch.eval.visualize import save_prediction_images
+
+    batch = next(iter(val_loader_factory()), None)
+    if batch is None:
+        return
+    preds = fns.predict_step(state, batch)
+    save_prediction_images(vis_dir, epoch, batch["image"].cpu().numpy(),
+                           batch["mask"].cpu().numpy(), preds.float().cpu().numpy(),
+                           names=batch.get("names"))

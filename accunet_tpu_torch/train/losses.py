@@ -5,6 +5,12 @@
   * weighted_dice_bce — 0.5 dice + 0.5 BCE (the ACC-UNet training loss)
   * soft_dice_show    — the hard-dice logging metric of WeightedDiceBCE
   * binary_dice_bce / binary_dice_show
+  * gt_bce_dice       — 5-head GT deep supervision: weighted_dice_bce on the
+    main head plus 0.1-0.5 of it on each aux head
+  * hausdorff_dt      — distance-transform Hausdorff loss; the distance
+    fields come from scipy on the host, from detached values, and carry no
+    gradient (JAX's pure_callback)
+  * weighted_dice_bce_hausdorff — 0.4 dice + 0.4 BCE + 0.2 Hausdorff
   * ds_adapter        — deep supervision: 0.5, 0.3, 0.2 on the aux heads
     (bilinear, align_corners=True, to the target's size) + 1.0 on the main
   * multiclass_dice_ce (a deep-supervision tuple through ds_adapter) /
@@ -23,6 +29,7 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -105,6 +112,17 @@ def binary_dice_show(logits, targets, smooth=1e-5):
     return ((2.0 * intersection + smooth) / denom).mean()
 
 
+def gt_bce_dice(gt_pre, out, target, wb=1.0, wd=1.0):
+    """5-head GT deep supervision (reference utils.py:269-278): the main
+    head's weighted Dice+BCE (dice weight wb, BCE weight wd) plus 0.1, 0.2,
+    0.3, 0.4 and 0.5 of it on gt_pre = (gt5, gt4, gt3, gt2, gt1)."""
+    base = functools.partial(weighted_dice_bce, dice_weight=wb, bce_weight=wd)
+    gt5, gt4, gt3, gt2, gt1 = gt_pre
+    return base(out, target) + (base(gt5, target) * 0.1 + base(gt4, target) * 0.2
+                                + base(gt3, target) * 0.3 + base(gt2, target) * 0.4
+                                + base(gt1, target) * 0.5)
+
+
 def ds_adapter(preds, target, base_loss=weighted_dice_bce, ds_weights=(0.5, 0.3, 0.2),
                main_weight=1.0):
     """Deep-supervision wrapper: `preds` is a plain tensor, a flat tuple
@@ -124,6 +142,45 @@ def ds_adapter(preds, target, base_loss=weighted_dice_bce, ds_weights=(0.5, 0.3,
             p = resize_bilinear(p, spatial, align_corners=True)
         loss = loss + w * base_loss(p, target)
     return loss + main_weight * base_loss(final_pred, target)
+
+
+def _edt_field(img: np.ndarray) -> np.ndarray:
+    """Per-sample foreground + background Euclidean distance transform
+    (HausdorffDTLoss.distance_field): edt(fg) + edt(~fg) of img > 0.5 where
+    the sample has foreground, else 0. Host-side numpy."""
+    from scipy.ndimage import distance_transform_edt as edt
+
+    field = np.zeros_like(img, dtype=np.float32)
+    for b in range(img.shape[0]):
+        fg = img[b] > 0.5
+        if fg.any():
+            field[b] = edt(fg) + edt(~fg)
+    return field
+
+
+def hausdorff_dt(pred, target, alpha=2.0):
+    """Distance-transform Hausdorff loss: mean((pred - target)^2 *
+    (dt(pred)^alpha + dt(target)^alpha)) in fp32. The distance fields are
+    computed on the host from detached copies, as the reference does, so
+    they carry no gradient."""
+    pred32 = pred.float()
+    target32 = target.float().reshape(pred.shape)
+
+    def field(t):
+        return torch.from_numpy(_edt_field(t.detach().cpu().numpy())).to(pred32.device)
+
+    distance = field(pred32) ** alpha + field(target32) ** alpha
+    return ((pred32 - target32) ** 2 * distance).mean()
+
+
+def weighted_dice_bce_hausdorff(pred, target, dice_weight=0.4, bce_weight=0.4,
+                                hausdorff_weight=0.2):
+    """WeightedDiceBCEHausdorff (reference utils.py:173-209)."""
+    _single_head(pred, "weighted_dice_bce_hausdorff")
+    if target.ndim == pred.ndim - 1:
+        target = target[..., None]
+    return (dice_weight * weighted_dice(pred, target) + bce_weight * weighted_bce(pred, target)
+            + hausdorff_weight * hausdorff_dt(pred, target))
 
 
 def multiclass_dice_ce(logits, targets, dice_weight=0.5, ce_weight=0.5, smooth=1e-5):
@@ -168,5 +225,7 @@ def multiclass_dice_show(logits, targets, smooth=1e-5):
 LOSSES = {
     "weighted_dice_bce": weighted_dice_bce,
     "binary_dice_bce": binary_dice_bce,
+    "weighted_dice_bce_hausdorff": weighted_dice_bce_hausdorff,
+    "gt_bce_dice": gt_bce_dice,
     "multiclass_dice_ce": multiclass_dice_ce,
 }

@@ -112,8 +112,29 @@ From the root of a checkout, with one CUDA device:
      SpatialMamba classifier (depths 1, d_state 1 and 16) b1 GPU vs CPU;
  29. times the variant's b8 224x224 fp32 inference and train step with peak
      memory, BASELINE config 5's SpatialMambaBlock forward, and each rh
-     kernel per shape against its plain version and its bound.
-It prints a JSON line of the kernels, then as its last line
+     kernel per shape against its plain version and its bound;
+ 30. trains in bf16 (--set train.compute_dtype=bfloat16): ACC_UNet and UNext
+     through the train entry point as in phase 7, with fp32's launches
+     (ACC_UNet 16 hanc_mix and 18 dwconv2d_wgrad a step, 7 hanc_block, 7
+     respath_level and 9 hanc_mix a validation forward; UNext 4 wgrad a
+     step); every hanc_mix and dwconv2d_wgrad launch of one bf16 ACC_UNet
+     b8 224x224 step against its plain version on the same bf16 inputs; a
+     b2 64x64 bf16 step on the GPU against the same step on the CPU, both
+     held to the float64 step (compare_train_step); ms/step and peak memory
+     of both train steps in fp32 and bf16;
+ 31. trains ACC_UNet_W with 3 classes at 512x512, batch 2, fp32 through the
+     train entry point as in phase 7 (multiclass Dice+CE), with its launches;
+ 32. runs the Seg-Grad-CAM entry point (accunet_tpu_torch.cli.gradcam) on
+     ACC_UNet b8 224x224 at cnv12 (files, CAMs in [0, 1], one eval
+     forward's launches a batch, seconds); the CAM on the GPU against the CPU
+     at b2 64x64; the fused eval kernels' autograd functions (HancBlockFn
+     with the chained pre, RespathLevelFn, ExpandDwFn) against autograd of
+     their plain versions at the model's shapes;
+ 33. runs accunet_tpu_torch.cli.profile --trace on ACC_UNet b8 224x224 and
+     checks its trace report (non-empty, hanc_block among the top ops), the
+     report's device ms beside the CUDA-event ms of the same window.
+Phases print their seconds. It prints a JSON line of the kernels (the
+launches of every path, the new ones too), then as its last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 A failed phase raises, so the run exits non-zero and prints no result; so
 does a host without CUDA or a directory without the package.
@@ -392,6 +413,19 @@ KERNELS = ("hanc_block", "respath_level", "hanc_mix", "expand_dw", "dwconv2d_wgr
            "selective_scan_bwd", "selective_scan_rh_fwd", "selective_scan_rh_bwd")
 
 
+def write_folder(root, n, hw, n_classes=1):
+    """A synthetic ISIC-style npy folder of n images (4, hw, hw) and masks:
+    binary or, for n_classes > 1, class ids 0..n_classes."""
+    rs = np.random.default_rng(0)
+    for sub in ("images", "masks"):
+        os.makedirs(os.path.join(root, sub))
+    for i in range(n):
+        np.save(os.path.join(root, "images", f"isic{i:03d}.npy"),
+                rs.random((4, hw, hw), dtype=np.float32))
+        np.save(os.path.join(root, "masks", f"isic{i:03d}.npy"),
+                rs.integers(0, n_classes + 1, (hw, hw)).astype(np.float32))
+
+
 def run_eval_cli(counters, model="ACC_UNet", n_classes=1, hw=HW, batch=B, n=2 * B,
                  model_kwargs=None, per_forward=EVAL_LAUNCHES):
     """Phases 4 and 16: the eval entry point on a synthetic ISIC-style folder
@@ -402,14 +436,7 @@ def run_eval_cli(counters, model="ACC_UNet", n_classes=1, hw=HW, batch=B, n=2 * 
 
     out_ch = 1 if n_classes == 1 else n_classes + 1
     with tempfile.TemporaryDirectory() as tmp:
-        rs = np.random.default_rng(0)
-        for sub in ("images", "masks"):
-            os.makedirs(os.path.join(tmp, "data", sub))
-        for i in range(n):
-            np.save(os.path.join(tmp, "data", "images", f"isic{i:03d}.npy"),
-                    rs.random((4, hw, hw), dtype=np.float32))
-            np.save(os.path.join(tmp, "data", "masks", f"isic{i:03d}.npy"),
-                    rs.integers(0, n_classes + 1, (hw, hw)).astype(np.float32))
+        write_folder(os.path.join(tmp, "data"), n, hw, n_classes)
         argv = ["--model", model, "--test-dir", os.path.join(tmp, "data"),
                 "--n-classes", str(n_classes), "--img-size", str(hw), "--batch", str(batch),
                 "--device", "cuda", "--csv", os.path.join(tmp, "m.csv"),
@@ -487,9 +514,10 @@ def check_autograd_fns(dev):
         raise SmokeError(f"autograd functions disagree with their plain versions: {bad}")
 
 
-def run_train_cli(counters, model, want_fn, extra=()):
-    """Phases 7, 13, 21 and 27: the train entry point for `model` (with the
-    arguments `extra`) on a synthetic ISIC-style folder: two epochs with a
+def run_train_cli(counters, model, want_fn, extra=(), hw=HW, batch=B):
+    """Phases 7, 13, 21, 27, 30 and 31: the train entry point for `model`
+    (with the arguments `extra`) on a synthetic ISIC-style folder of hw x hw
+    images in batches of `batch`: two epochs with a
     checkpoint directory, then --resume auto for a third. Returns the
     launches of the train steps and of the validation forwards apart: the
     counts are set to 0 before each epoch's train or validation pass
@@ -513,7 +541,7 @@ def run_train_cli(counters, model, want_fn, extra=()):
 
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, "ckpt")
-        argv = ["--model", model, "--synthetic", "--img-size", str(HW), "--batch", str(B),
+        argv = ["--model", model, "--synthetic", "--img-size", str(hw), "--batch", str(batch),
                 "--device", "cuda", "--ckpt-dir", ckpt, "--check-numerics", *extra]
         engine.run_epoch = counted_run_epoch
         try:
@@ -537,7 +565,8 @@ def run_train_cli(counters, model, want_fn, extra=()):
     want = want_fn(steps, val_batches)
     if launches != want:
         raise SmokeError(f"train path launches {launches}, expected {want}")
-    log(f"  {model} train: {steps} steps + {val_batches} val batches in {seconds:.2f} s (3 epochs, "
+    log(f"  {model} {' '.join(extra)} train ({hw}x{hw}, b{batch}): {steps} steps + {val_batches} "
+        f"val batches in {seconds:.2f} s (3 epochs, "
         f"resumed after 2 from {saved[-1]}), losses {[round(v, 4) for v in losses]}, kept "
         f"{kept}; launches {launches}")
     return launches
@@ -641,8 +670,8 @@ def acc_unet():
 
 
 def compare_train_step(make_model=acc_unet, b=2, hw=TRAIN_CMP_HW, tol=TRAIN_TOL,
-                       dev: str = "cuda"):
-    """Phases 8 and 22: one train step (make_train_fns: train-mode BN,
+                       dev: str = "cuda", dtype=torch.float32):
+    """Phases 8, 22 and 30: one train step (make_train_fns: train-mode BN,
     weighted Dice+BCE, backward, Adam) of a seeded model (ACC_UNet
     n_filts=32 at b2 64x64; UNext at b8 224x224) on the GPU in fp32
     (kernels), held against the same step on the CPU in float64 (plain
@@ -663,7 +692,14 @@ def compare_train_step(make_model=acc_unet, b=2, hw=TRAIN_CMP_HW, tol=TRAIN_TOL,
     `tol` is TRAIN_TOL (1e-3) for ACC_UNet and UNEXT_TRAIN_TOL (1e-4) for
     UNext, whose step is far better conditioned: on the H100 its loss,
     BN statistics and gradients came within 0, 3.8e-6 and 1.6e-5 of the
-    float64 step (the CPU's fp32 control: 1.3e-5, 3.1e-5)."""
+    float64 step (the CPU's fp32 control: 1.3e-5, 3.1e-5).
+    With `dtype` bfloat16 (phase 30) the GPU and CPU steps compute in bf16
+    (fp32 parameters cast at use) and the CPU's bf16 step is the control of
+    the loss and the BN statistics too: a bf16 train step is far from the
+    float64 one (on the CPU, ACC_UNet b2 64x64: a BN variance 0.48 of its
+    layer's scale, the gradients 0.84 of the largest; JAX's bf16 model's BN
+    variances are 0.54 from the same float64 statistics), so each measure is
+    held within twice the control's, or `tol`."""
     from accunet_tpu_torch.train.engine import make_train_fns
 
     base = make_model()
@@ -676,6 +712,8 @@ def compare_train_step(make_model=acc_unet, b=2, hw=TRAIN_CMP_HW, tol=TRAIN_TOL,
                        ("cpu64", "cpu", torch.float64)):
         t0 = time.perf_counter()
         model = copy.deepcopy(base).to(device=d, dtype=dt)
+        if dt == torch.float32:
+            model.dtype = dtype
         taps = DepthwiseTaps(model) if tag == "gpu" else None
         fns = make_train_fns(model)
         _, stats = fns.train_step(fns.state, {"image": x.to(d, dt), "mask": mask.to(d, dt)})
@@ -692,33 +730,44 @@ def compare_train_step(make_model=acc_unet, b=2, hw=TRAIN_CMP_HW, tol=TRAIN_TOL,
         scale = max(float(t.abs().max()) for t in want.values())
         return max(float((res[tag][1][n] - t).abs().max()) for n, t in want.items()) / scale
 
-    out = {"loss_rel": abs(res["gpu"][0] - res["cpu64"][0]) / abs(res["cpu64"][0]),
-           "dw_vs_plain": dw_err[0], "dw_worst": dw_err[1], "dw_params": n_dw}
+    out = {"dtype": str(dtype)[6:], "dw_vs_plain": dw_err[0], "dw_worst": dw_err[1],
+           "dw_params": n_dw}
     for tag in ("gpu", "cpu"):
+        out["loss_rel" + ("" if tag == "gpu" else "_cpu")] = (
+            abs(res[tag][0] - res["cpu64"][0]) / abs(res["cpu64"][0]))
         out[f"bn_stats_{tag}"], out[f"bn_worst_{tag}"] = bn_stat_err(res[tag][2],
                                                                      res["cpu64"][2], init)
         out[f"grad_gap_{tag}"] = gap(tag)
-    log(f"  vs the float64 CPU step, GPU (CPU fp32 control): loss rel {out['loss_rel']:.3e}; "
+    log(f"  {out['dtype']} vs the float64 CPU step, GPU (CPU {out['dtype']} control): loss rel "
+        f"{out['loss_rel']:.3e} ({out['loss_rel_cpu']:.3e}); "
         f"BN statistics {out['bn_stats_gpu']:.3e} at {out['bn_worst_gpu']} "
         f"({out['bn_stats_cpu']:.3e} at {out['bn_worst_cpu']}); gradients over the largest "
         f"{out['grad_gap_gpu']:.3e} ({out['grad_gap_cpu']:.3e}). {n_dw} depthwise weight "
         f"gradients (and DWConv bias gradients) vs plain wgrad of the step's x, g: rel "
         f"{dw_err[0]:.3e} at {dw_err[1]}")
-    if (out["loss_rel"] > tol or out["bn_stats_gpu"] > tol or out["dw_vs_plain"] > FP32_TOL
-            or out["grad_gap_gpu"] > max(2 * out["grad_gap_cpu"], tol)):
+    # bf16: the loss and the BN statistics too against twice the control
+    lim = {k: max(2 * out[c], tol) if dtype != torch.float32 or k == "grad_gap_gpu" else tol
+           for k, c in (("loss_rel", "loss_rel_cpu"), ("bn_stats_gpu", "bn_stats_cpu"),
+                        ("grad_gap_gpu", "grad_gap_cpu"))}
+    log(f"  limits (tol {tol:g}): " + ", ".join(f"{k} {v:.3e}" for k, v in lim.items())
+        + f", depthwise gradients {FP32_TOL:g}")
+    if out["dw_vs_plain"] > FP32_TOL or any(out[k] > v for k, v in lim.items()):
         raise SmokeError("the train step on the GPU disagrees with the float64 CPU step")
     return out
 
 
-def time_train_step(model, label="ACC_UNet", counters=None):
-    """Phases 9b and 24: the b8 224x224 fp32 train step (forward, weighted
-    Dice+BCE, backward, Adam) of a copy of `model` on the card, 10 steps
-    after 3 warm-up, its peak memory and the launches per step of each
-    kernel in `counters`."""
+def time_train_step(model, label="ACC_UNet", counters=None, dtype=torch.float32):
+    """Phases 9b, 24 and 30: the b8 224x224 train step (forward, weighted
+    Dice+BCE, backward, Adam) of a copy of `model` on the card computing in
+    `dtype` (bf16: fp32 parameters cast at use), 10 steps after 3 warm-up,
+    its peak memory and the launches per step of each kernel in
+    `counters`."""
     from accunet_tpu_torch.train.engine import make_train_fns
 
     counters = counters or {}
-    fns = make_train_fns(copy.deepcopy(model).cuda())
+    m = copy.deepcopy(model).cuda()
+    m.dtype = dtype
+    fns = make_train_fns(m)
     g = torch.Generator("cuda").manual_seed(6)
     batch = {"image": torch.rand(B, HW, HW, 3, generator=g, device="cuda"),
              "mask": (torch.rand(B, HW, HW, 1, generator=g, device="cuda") > 0.5).float()}
@@ -732,7 +781,8 @@ def time_train_step(model, label="ACC_UNet", counters=None):
         raise SmokeError(f"non-finite loss in the timed {label} train step")
     out = {"ms_per_step": ms, "img_per_s": B * 1e3 / ms,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
-    log(f"  {label} b{B} {HW}x{HW} fp32 train step: {ms:.3f} ms/step, {out['img_per_s']:.1f} "
+    log(f"  {label} b{B} {HW}x{HW} {str(dtype)[6:]} train step: {ms:.3f} ms/step, "
+        f"{out['img_per_s']:.1f} "
         f"img/s, peak {out['peak_mem_gib']:.2f} GiB; per step "
         + ", ".join(f"{k} {n:g}" for k, n in per_step.items()))
     del fns
@@ -1979,6 +2029,249 @@ def time_rh_scan():
     return times
 
 
+# ------------------------------------------------- the train and eval harness
+# bf16 training: `--set train.compute_dtype=bfloat16` builds ACC-UNet and
+# UNeXt models with dtype=torch.bfloat16 (fp32 parameters and Adam state cast
+# at use, BatchNorm statistics in fp32): hanc_mix, the depthwise backward's
+# dwconv2d_wgrad and, in the validation forwards, hanc_block and
+# respath_level run their bf16 paths
+BF16_SET = ("--set", "train.compute_dtype=bfloat16")
+# a bf16 train step, GPU vs CPU, each against the float64 step: twice the
+# CPU bf16 step's distance or this (compare_train_step says why)
+BF16_TRAIN_TOL = 3e-2
+# Seg-Grad-CAM at cnv12, whose gradient passes back through every fused and
+# unfused kernel's autograd function: rspth1's and rspth2's fused levels, the
+# fused cnv21 -> cnv22 pair (chained pre), the unfused blocks' HANC mixes and
+# the fused decoder pairs; GPU vs CPU at b2 64x64, max abs error of the [0, 1]
+# maps (with the seeded weights a CAM at cnv22 or cnv81 is 0 everywhere, at
+# cnv12 it spans 0..0.97 on the CPU)
+CAM_LAYER, CAM_HW, CAM_TOL = "cnv12", 64, 1e-3
+
+
+def with_zeros(want_fn):
+    """`want_fn` with every other kernel of KERNELS at 0 in both counts."""
+    def want(steps, val_batches):
+        return {split: {**dict.fromkeys(KERNELS, 0), **c}
+                for split, c in want_fn(steps, val_batches).items()}
+    return want
+
+
+def check_bf16_train_kernels():
+    """Phase 30c: one bf16 train step of ACC_UNet (n_filts 32, b8 224x224)
+    with every hanc_mix and dwconv2d_wgrad launch recorded: each launch's
+    output against its plain version on the same bf16 inputs (BF16_TOL).
+    Returns {kernel: max abs error}."""
+    from accunet_tpu_torch.ops.kernels import dwconv2d as DW
+    from accunet_tpu_torch.ops.kernels import hanc_mix as HM
+    from accunet_tpu_torch.train.engine import make_train_fns
+
+    calls = []
+    mix, wgrad = HM.hanc_mix, DW.dwconv2d_wgrad
+
+    def rec_mix(x, w, bias, k, tile=0):
+        y = mix(x, w, bias, k, tile)
+        calls.append(("hanc_mix", (x, w, bias, k), y))
+        return y
+
+    def rec_wgrad(x, g, kh, kw, bias_grad=False, plan=None):
+        out = wgrad(x, g, kh, kw, bias_grad, plan)
+        calls.append(("dwconv2d_wgrad", (x, g, kh, kw, bias_grad), out))
+        return out
+
+    # the kernel wrappers count their launches on the module-level name
+    rec_mix.launches = rec_wgrad.launches = 0
+    model = acc_unet().cuda()
+    model.dtype = torch.bfloat16
+    fns = make_train_fns(model)
+    g = torch.Generator("cuda").manual_seed(30)
+    batch = {"image": torch.rand(B, HW, HW, 3, generator=g, device="cuda"),
+             "mask": (torch.rand(B, HW, HW, 1, generator=g, device="cuda") > 0.5).float()}
+    HM.hanc_mix, DW.dwconv2d_wgrad = rec_mix, rec_wgrad
+    try:
+        _, stats = fns.train_step(fns.state, batch)
+        torch.cuda.synchronize()
+    finally:
+        HM.hanc_mix, DW.dwconv2d_wgrad = mix, wgrad
+    if not bool(torch.isfinite(stats["loss"])):
+        raise SmokeError("non-finite loss in the bf16 train step")
+    worst, shapes, bad = {}, {}, []
+    with torch.no_grad():
+        for kname, args, got in calls:
+            if args[0].dtype != torch.bfloat16:
+                raise SmokeError(f"{kname} ran on {args[0].dtype} in the bf16 train step")
+            if kname == "hanc_mix":
+                want = HM.hanc_mix_reference(*args)
+            else:
+                x, gy, kh, kw, with_db = args
+                want = DW.dwconv2d_wgrad_reference(x, gy, kh, kw)
+                want = (want, gy.float().sum(dim=(0, 1, 2))) if with_db else want
+            got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+            errs = [rel_err(a, b) for a, b in zip(got, want)]
+            abs_err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
+            worst[kname] = max(worst.get(kname, 0.0), abs_err)
+            shapes.setdefault(kname, []).append(f"{tuple(args[0].shape)} rel {rel:.2e}")
+            if rel > BF16_TOL:
+                bad.append(f"{kname} {tuple(args[0].shape)} rel {rel:.3e}")
+    counts = {k: len(v) for k, v in shapes.items()}
+    for kname, lines in shapes.items():
+        log(f"  bf16 step: {kname} x{len(lines)}: " + "; ".join(lines))
+    if counts != {"hanc_mix": 16, "dwconv2d_wgrad": 18} or bad:
+        raise SmokeError(f"bf16 train step kernels: {counts} launches (16 / 18 expected), "
+                         f"disagreeing with their plain versions: {bad}")
+    log(f"  every launch within {BF16_TOL:g} of its plain version; max abs errors {worst}")
+    return worst
+
+
+def run_gradcam_cli(counters, layer=CAM_LAYER, n=2 * B):
+    """Phase 32a: the gradcam entry point on a synthetic ISIC-style folder of
+    n 224x224 images, ACC_UNet full width with seeded weights, batch 8, the
+    CAM at `layer`: a .npz per image (and a .png where PIL imports) with a
+    finite CAM in [0, 1], and per batch the one eval forward's launches.
+    Returns (launches, seconds)."""
+    from accunet_tpu_torch.cli import gradcam as cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        write_folder(os.path.join(tmp, "data"), n, HW)
+        out = os.path.join(tmp, "cam")
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        done = cli.main(["--model", "ACC_UNet", "--test-dir", os.path.join(tmp, "data"),
+                         "--img-size", str(HW), "--batch", str(B), "--layer", layer,
+                         "--out-dir", out, "--device", "cuda"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        files = sorted(os.listdir(out))
+        npz = [f for f in files if f.endswith(".npz")]
+        if done != n or len(npz) != n or len(files) not in (n, 2 * n):
+            raise SmokeError(f"gradcam wrote {files} for {n} images ({done} reported)")
+        for f in npz:
+            cam = np.load(os.path.join(out, f))["cam"]
+            if cam.shape != (HW, HW) or not np.isfinite(cam).all() or cam.min() < 0 \
+                    or cam.max() > 1:
+                raise SmokeError(f"{f}: CAM {cam.shape} not finite in [0, 1]")
+    batches = -(-n // B)
+    want = {k: EVAL_LAUNCHES.get(k, 0) * batches for k in launches}
+    if launches != want:
+        raise SmokeError(f"the gradcam path launched {launches}, expected {want}")
+    log(f"  gradcam CLI, ACC_UNet b{B} {HW}x{HW}, layer {layer}: {n} CAMs ({len(files)} files) "
+        f"in {seconds:.2f} s ({seconds / batches:.2f} s a batch); launches {launches} in "
+        f"{batches} batches")
+    return launches, seconds
+
+
+def compare_cam(layer=CAM_LAYER):
+    """Phase 32b: Seg-Grad-CAM of the seeded ACC_UNet (logits, fp32) at b2
+    CAM_HW x CAM_HW on the GPU (fused kernels forward, their plain versions'
+    VJPs backward) against the same CAM on the CPU (plain versions): max abs
+    error of the [0, 1] maps <= CAM_TOL."""
+    from accunet_tpu_torch.eval.gradcam import seg_grad_cam
+
+    model = seeded_model()
+    x = torch.from_numpy(np.random.default_rng(32).standard_normal((2, CAM_HW, CAM_HW, 3),
+                                                                  dtype=np.float32))
+    want = seg_grad_cam(model, x, layer)
+    got = seg_grad_cam(copy.deepcopy(model).cuda(), x.cuda(), layer).cpu()
+    err = float((got - want).abs().max())
+    log(f"  CAM at {layer}, b2 {CAM_HW}x{CAM_HW}, GPU vs CPU: max abs err {err:.3e} (limit "
+        f"{CAM_TOL:g}; maps in [0, 1], CPU range {float(want.min()):.3f}..{float(want.max()):.3f})")
+    if not bool(got.isfinite().all()) or err > CAM_TOL:
+        raise SmokeError("the CAM on the GPU disagrees with the CPU")
+    return err
+
+
+def check_eval_fns(dev, ed_cases):
+    """Phase 32c: the fused eval kernels' autograd functions on the card at
+    the model's own shapes (phase 3's and 15's cases, fp32): HancBlockFn
+    (cnv12, cnv22 with cnv21's chained pre, cnv81, cnv91), RespathLevelFn
+    (rspth1 levels 0 and 1, rspth2 level 1) and ExpandDwFn (cnv72 of b8
+    224x224 and of W b2 512x512): the gradient of every tensor input (x, the
+    pre, the weights, the SE inputs) for random cotangents of every output,
+    against autograd through the plain version, FP32_TOL of each gradient's
+    scale."""
+    from accunet_tpu_torch.ops.kernels import expand_dw as ED
+    from accunet_tpu_torch.ops.kernels import hanc_block as HB
+    from accunet_tpu_torch.ops.kernels import respath as RP
+
+    g = torch.Generator(device=dev).manual_seed(32)
+
+    def leaves(args):
+        return [a.detach().clone().requires_grad_(True) if isinstance(a, torch.Tensor) else a
+                for a in args]
+
+    def cot(outs):
+        return [torch.randn(o.shape, generator=g, device=dev).to(o.dtype) for o in outs]
+
+    checks = []
+    for case in kernel_cases(dev)(torch.float32):
+        if case.kernel == "hanc_block":
+            x, p, pre = case.args
+            args = leaves([x, pre, *p])
+            outs = HB.HancBlockFn.apply(args[0], args[1], 3, *args[2:])
+            y, sums = HB.hanc_block_reference(args[0], HB.HANCBlockWeights(*args[2:]), 3, args[1])
+            plain = (y, sums[:, 0])
+        elif case.kernel == "respath_level":
+            args = leaves(case.args)
+            outs = RP.RespathLevelFn.apply(*args)
+            y, x_new, sums = RP.respath_level_reference(*args)
+            plain = (y, x_new, sums[:, 0])
+        else:
+            continue
+        checks.append((f"{case.kernel} {case.name}", args, outs, plain))
+    for case in ed_cases(torch.float32)[:2]:
+        x, w1, b1, wd, bd, bn1, bn2 = case.args
+        args = leaves([x, w1, b1, wd, bd, *bn1, *bn2])
+        outs = (ED.ExpandDwFn.apply(*args),)
+        plain = (ED.expand_dw_plain(args[0], *args[1:5], tuple(args[5:7]), tuple(args[7:9])),)
+        checks.append((f"expand_dw {case.name}", args, outs, plain))
+    bad = []
+    for name, args, outs, plain in checks:
+        inputs = [a for a in args if isinstance(a, torch.Tensor)]
+        gys = cot(outs)
+        got = torch.autograd.grad(outs, inputs, gys)
+        want = torch.autograd.grad(plain, inputs, gys)
+        rel = max(rel_err(a, b)[1] for a, b in zip(got, want))
+        ok = rel <= FP32_TOL
+        log(f"  {'ok ' if ok else 'BAD'} {name:26s} {len(inputs):2d} input gradients rel "
+            f"{rel:.3e} (tol {FP32_TOL:g})")
+        if not ok:
+            bad.append(name)
+    if bad:
+        raise SmokeError(f"eval autograd functions disagree with their plain versions: {bad}")
+
+
+def run_profile_trace():
+    """Phase 33: accunet_tpu_torch.cli.profile --trace on ACC_UNet b8
+    224x224 fp32: 5 forwards under torch.profiler with the module ranges; the
+    trace's report (utils/trace_report.py) is non-empty and names hanc_block
+    among its top ops; the report's device ms per forward beside the
+    CUDA-event ms per forward of the same profiled window."""
+    from accunet_tpu_torch.cli import profile as cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out = cli.main(["--model", "ACC_UNet", "--img", str(HW), "--batch", str(B),
+                        "--steps", "5", "--trace", tmp])
+        seconds = time.perf_counter() - t0
+        mib = os.path.getsize(os.path.join(tmp, "trace.json")) / 2 ** 20
+    modules, ops = out["trace_modules"], out["trace_top_ops"]
+    named = [m for m, _ in modules if m not in ("total", "(other)")]
+    if not ops or not named or out["trace_ms"] <= 0:
+        raise SmokeError(f"empty trace report: modules {modules}, ops {ops}")
+    if not any("hanc_block" in name for name, *_ in ops):
+        raise SmokeError(f"hanc_block is not among the trace's top ops: {[o[0] for o in ops]}")
+    res = {"trace_device_ms_per_forward": out["trace_ms"],
+           "cuda_event_ms_per_forward": out["window_ms"],
+           "profiler_off_ms_per_forward": out["ms_per_batch"], "trace_mib": mib,
+           "modules": len(named), "seconds": seconds}
+    log(f"  trace report: {out['trace_ms']:.3f} device ms per forward (kernels and copies summed) "
+        f"beside {out['window_ms']:.3f} ms per forward by CUDA events over the same window "
+        f"({out['ms_per_batch']:.3f} without the profiler); {len(named)} modules, trace "
+        f"{mib:.1f} MiB, {seconds:.1f} s")
+    return res
+
+
 class Phases:
     """Logs each phase's title and, when the next begins (or `end()`), the
     seconds it took."""
@@ -2183,8 +2476,44 @@ def main() -> int:
     phase("[29] Spatial-Mamba timing, the rh kernels at their shapes")
     spm_rates = time_spm(spm)
     times.update({(k, c, "float32"): v for (k, c), v in time_rh_scan().items()})
-    phase.end()
     log("  " + json.dumps({"card": card, "spatial_mamba": spm_rates, "spm_checks": spm_checks}))
+
+    phase("[30] bf16 training (train.compute_dtype=bfloat16): ACC_UNet and UNext through "
+          "accunet_tpu_torch.cli.train on cuda; the kernels at a bf16 step's shapes; a b2 "
+          f"{TRAIN_CMP_HW}x{TRAIN_CMP_HW} bf16 step GPU vs CPU; ms/step bf16 beside fp32")
+    for tag, name, want_fn in (("bf16", "ACC_UNet", with_zeros(acc_train_launches)),
+                               ("unext_bf16", "UNext", unext_train_launches)):
+        bf_launches = run_train_cli(counters, name, want_fn, BF16_SET)
+        launches[f"{tag}_train_cli_steps"] = bf_launches["train_steps"]
+        launches[f"{tag}_train_cli_validation"] = bf_launches["validation"]
+    for kname, err in check_bf16_train_kernels().items():
+        worst_bf16[kname] = max(worst_bf16.get(kname, 0.0), err)
+    bf16_checks = {"train_step": compare_train_step(tol=BF16_TRAIN_TOL, dtype=torch.bfloat16)}
+    bf16_rates = {}
+    for label, mdl, cnt in (("ACC_UNet", acc_unet(), {"dwconv2d_wgrad": dwconv2d_wgrad,
+                                                      "hanc_mix": hanc_mix}),
+                            ("UNext", unext, {"dwconv2d_wgrad": dwconv2d_wgrad})):
+        for dt in (torch.float32, torch.bfloat16):
+            bf16_rates[f"{label}_train_step_{str(dt)[6:]}"] = time_train_step(mdl, label, cnt, dt)
+    log("  " + json.dumps({"card": card, "train_steps": bf16_rates, "bf16_checks": bf16_checks}))
+
+    phase(f"[31] ACC_UNet_W ({W_CLASSES} classes, {W_HW}x{W_HW}, b{W_B}, fp32) through "
+          "accunet_tpu_torch.cli.train on cuda, then --resume auto")
+    w_launches = run_train_cli(counters, "ACC_UNet_W", with_zeros(acc_train_launches),
+                               ("--n-classes", str(W_CLASSES)), hw=W_HW, batch=W_B)
+    launches["w_train_cli_steps"] = w_launches["train_steps"]
+    launches["w_train_cli_validation"] = w_launches["validation"]
+
+    phase(f"[32] Seg-Grad-CAM: accunet_tpu_torch.cli.gradcam on cuda (ACC_UNet b{B} {HW}x{HW}); "
+          f"the CAM GPU vs CPU (b2 {CAM_HW}x{CAM_HW}); the eval kernels' autograd functions")
+    launches["gradcam_cli"], cam_seconds = run_gradcam_cli(counters)
+    cam_checks = {"gradcam_cli_seconds": cam_seconds, "gpu_vs_cpu_max_abs": compare_cam()}
+    check_eval_fns(dev, ed_cases)
+
+    phase("[33] accunet_tpu_torch.cli.profile --trace (ACC_UNet b8 224x224 fp32) and its report")
+    trace = run_profile_trace()
+    phase.end()
+    log("  " + json.dumps({"card": card, "gradcam": cam_checks, "trace": trace}))
 
     # the shapes whose times the kernels line lists per kernel
     by_shape = {"hanc_block": ("cnv12", "cnv22", "cnv81", "cnv91"),

@@ -256,6 +256,10 @@ def test_port_never_imports_jax():
                 if n.split(".")[0] in banned:
                     offenders.append(f"{path.relative_to(REPO)}:{node.lineno} {n}")
     assert len(files) > 20
+    # the harness modules of the train / eval slice are among the files read
+    assert {REPO / "accunet_tpu_torch" / f for f in (
+        "eval/gradcam.py", "eval/visualize.py", "cli/gradcam.py", "data/native_loader.py",
+        "utils/trace_report.py")} <= set(files)
     assert not offenders, offenders
 
 

@@ -73,20 +73,49 @@ def test_loss_matches_jax(name, kind):
     np.testing.assert_allclose(got, want, **TOL)
 
 
-@pytest.mark.parametrize("name", ["weighted_dice_bce", "binary_dice_bce", "multiclass_dice_ce"])
+# loss(module, pred, target) for the gradient test; gt_bce_dice's five aux
+# heads are scaled copies of pred, so its gradient sums all six heads'
+GRAD_CASES = {
+    "weighted_dice_bce": lambda L, p, t: L.weighted_dice_bce(p, t),
+    "binary_dice_bce": lambda L, p, t: L.binary_dice_bce(p, t),
+    "multiclass_dice_ce": lambda L, p, t: L.multiclass_dice_ce(p, t),
+    "gt_bce_dice": lambda L, p, t: L.gt_bce_dice(tuple(p * s for s in (0.5, 0.8, 1.1, 1.4, 1.7)),
+                                                 p, t),
+    "hausdorff_dt": lambda L, p, t: L.hausdorff_dt(p, t),
+    "weighted_dice_bce_hausdorff": lambda L, p, t: L.weighted_dice_bce_hausdorff(p, t),
+}
+
+
+@pytest.mark.parametrize("name", list(GRAD_CASES))
 def test_loss_gradient_matches_jax(name):
+    """The loss's value and its gradient. The Hausdorff losses' distance
+    fields come from scipy on both sides, from the detached prediction, and
+    carry no gradient."""
     import jax
 
+    fn = GRAD_CASES[name]
     pred, target = _inputs("multi" if name.startswith("multiclass") else "logits")
-    want = np.asarray(jax.grad(lambda p: getattr(JL, name)(p, jnp.asarray(target)))(jnp.asarray(pred)))
+    value, want = jax.value_and_grad(lambda p: fn(JL, p, jnp.asarray(target)))(jnp.asarray(pred))
+    want = np.asarray(want)
     p = torch.from_numpy(pred).requires_grad_(True)
-    getattr(TL, name)(p, torch.from_numpy(target)).backward()
+    loss = fn(TL, p, torch.from_numpy(target))
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(value), **TOL)
     np.testing.assert_allclose(p.grad.numpy(), want, atol=1e-6 * np.abs(want).max(), rtol=1e-6)
 
 
+def test_edt_field_matches_jax():
+    """The host-side distance field: edt(fg) + edt(~fg) per sample, 0 for a
+    sample without foreground."""
+    pred, _ = _inputs("logits")
+    pred[1] = 0.0  # no foreground
+    got = TL._edt_field(pred)
+    np.testing.assert_array_equal(got, JL._edt_field(pred))
+    assert got.dtype == np.float32 and not got[1].any() and got[0].max() > 1
+
+
 def test_losses_map_holds_the_ported_entries():
-    assert set(TL.LOSSES) == {"weighted_dice_bce", "binary_dice_bce", "multiclass_dice_ce"}
-    assert set(TL.LOSSES) <= set(JL.LOSSES)
+    assert set(TL.LOSSES) == set(JL.LOSSES)
 
 
 @pytest.mark.parametrize("name,kind", [("batch_iou", "logits"), ("multiclass_batch_iou", "multi")])
