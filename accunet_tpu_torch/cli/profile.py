@@ -6,6 +6,8 @@
     python -m accunet_tpu_torch.cli.profile --model Segmamba [--train]
     python -m accunet_tpu_torch.cli.profile --n-classes 2 [--train] \
         --model Segmamba_hybrid_gsc_KAN_PE_ds_CrossAttn_HSLCA_SpatialMamba_no_text
+    python -m accunet_tpu_torch.cli.profile --model Segmamba_hybrid_gsc_KAN_PE_ds_CrossAttn_HSLCA \
+        --n-classes 2 --text [--train --batch 4]
     python -m accunet_tpu_torch.cli.profile --model UNext [--dtype bfloat16] [--train]
     python -m accunet_tpu_torch.cli.profile --model ACC_UNet_W --img 512 --batch 2 \
         [--model-kwargs "{'hybrid_expand_dw': True}"]
@@ -120,6 +122,9 @@ def main(argv=None):
     ap.add_argument("--train", action="store_true",
                     help="profile a train step instead of a forward")
     ap.add_argument("--channels", type=int, default=3, help="input channels")
+    ap.add_argument("--text", action="store_true",
+                    help="give a text-conditioned SegMamba model FakeTextEncoder embeddings "
+                         "(B, 16, 768) of --batch prompts as its text_tokens")
     ap.add_argument("--trace", default=None,
                     help="write the profiled steps' Chrome trace (with module ranges) to "
                          "DIR/trace.json and print its report")
@@ -164,6 +169,13 @@ def main(argv=None):
     model = model.to(device).eval()
     gen = torch.Generator(device).manual_seed(1)
     x = torch.randn(args.batch, args.img, args.img, args.channels, device=device, generator=gen)
+    text = None
+    if args.text:
+        from accunet_tpu_torch.nn.text import FakeTextEncoder
+
+        text = torch.from_numpy(FakeTextEncoder()([f"prompt {i}" for i in range(args.batch)]))
+        text = text.to(device)
+    inputs = (x,) if text is None else (x, text)
     n_params = sum(p.numel() for p in model.parameters())
     kind = "train step" if args.train else "forward"
     print(f"model={args.model} input={args.batch}x{args.img}x{args.img}x{args.channels} "
@@ -183,10 +195,10 @@ def main(argv=None):
                     > 0.5).float()
 
         def step():
-            fns.train_step(fns.state, {"image": x, "mask": mask})
+            fns.train_step(fns.state, {"image": x, "mask": mask, "text_emb": text})
     else:
         def step():
-            model(x)
+            model(*inputs)
 
     def timed(n):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))

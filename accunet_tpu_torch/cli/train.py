@@ -24,6 +24,15 @@ dwconv2d_wgrad run their bf16 paths. SegMamba models train in fp32 under
 either setting, as JAX builds them without a dtype; the run logs one line
 saying so. `--vis-dir` saves the first validation batch's input, mask and
 prediction images every `--vis-frequency` epochs.
+
+Text prompts, with JAX's rule: a model of TEXT_MODELS (or any model with
+`--text`) reads the prompt file of --train-dir and --val-dir
+(data/text_prompts.py: a .csv or .xlsx with Filename,Text columns or the
+other two conventions); each batch's prompts, looked up by image file name
+("" when absent), go through ClinicalTextEncoder (nn/text.py; without
+ClinicalBERT's weights it warns and uses the FakeTextEncoder stub) and
+reach the model as `text_tokens`. A TEXT_MODELS name without a prompt file
+in --train-dir trains on the images alone, unless `--text` is given.
 """
 
 from __future__ import annotations
@@ -34,6 +43,20 @@ import functools
 import logging
 import os
 import tempfile
+
+# the text-conditioned models (the JAX CLI's TEXT_MODELS)
+TEXT_MODELS = {
+    "Segmamba_hybrid_gsc_KAN_PE_ds_text",
+    "Segmamba_hybrid_gsc_KAN_PE_ds_CrossAttn",
+    "Segmamba_hybrid_gsc_KAN_PE_ds_CrossAttn_TGDC",
+    "Segmamba_hybrid_gsc_KAN_PE_ds_CrossAttn_HSLCA",
+    "Segmamba_hybrid_gsc_KAN_PE_ds_CrossAttn_Dual",
+    "Segmamba_hybrid_gsc_KAN_PE_ds_CrossAttn_HSLCA_SpatialMamba",
+    "Segmamba_hybrid_gsc_KAN_PE_ds_CrossAttn_HSLCA_SpatialMamba_KAN",
+    "Segmamba_hybrid_gsc_KAN_PE_ds_CrossAttn_SpatialMamba",
+    "Segmamba_hybrid_gsc_KAN_PE_ds_CrossAttn_Dual_SpatialMamba",
+    "Segmamba_hybrid_gsc_KAN_PE_ds_CrossAttn_HSLCA_SpatialMamba_no_text",
+}
 
 
 def parse_overrides(pairs):
@@ -81,6 +104,9 @@ def main(argv=None):
     ap.add_argument("--epochs", type=int, default=None)
     ap.add_argument("--n-classes", type=int, default=1,
                     help=">1 trains an (n+1)-way softmax head")
+    ap.add_argument("--text", action="store_true",
+                    help="use text prompts with any model, and with a TEXT_MODELS model even "
+                         "without a prompt file")
     ap.add_argument("--check-numerics", action="store_true",
                     help="abort on the first non-finite train loss (a device sync per batch)")
     ap.add_argument("--resume", default=None,
@@ -163,6 +189,23 @@ def main(argv=None):
     val_loader = PrefetchLoader(BatchLoader(val_ds, cfg.data.batch_size, ValGenerator(hw),
                                             pad_last=True))
 
+    use_text = args.text or args.model in TEXT_MODELS
+    text_encoder = train_text = val_text = None
+    if use_text:
+        from accunet_tpu_torch.data.text_prompts import read_text
+        from accunet_tpu_torch.nn.text import ClinicalTextEncoder
+
+        train_text, val_text = read_text(cfg.data.train_dir), read_text(cfg.data.val_dir)
+        if train_text is None and not args.text:
+            use_text = False  # a TEXT_MODELS model trained on the images alone
+        else:
+            text_encoder = ClinicalTextEncoder()
+            logging.info("text prompts enabled (%d train entries)", len(train_text or {}))
+
+    def embed_texts(names):
+        prompts = [(train_text or {}).get(n) or (val_text or {}).get(n) or "" for n in names]
+        return torch.from_numpy(text_encoder(prompts)).to(device)
+
     sample, _ = train_ds[0]
     n_cls = args.n_classes
     n_ch = sample["image"].shape[-1]
@@ -184,8 +227,11 @@ def main(argv=None):
 
     def device_batches(loader):
         for b in loader:
-            yield {"image": torch.from_numpy(b["image"]).to(device),
+            out = {"image": torch.from_numpy(b["image"]).to(device),
                    "mask": torch.from_numpy(b["mask"]).to(device)}
+            if use_text:
+                out["text_emb"] = embed_texts(b["names"])
+            yield out
 
     fns = make_train_fns(
         model, loss_fn=loss_fn, learning_rate=cfg.train.lr,

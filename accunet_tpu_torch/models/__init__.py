@@ -1,8 +1,9 @@
 """Model registry of the port, under the JAX package's registry names
-(accunet_tpu/models/__init__.py): the ACC-UNet family, the SegMamba
-baseline and its Spatial-Mamba variant without text, UNeXt, the UNext_CMRF
-family (whose unported variants raise NotImplementedError when built) and
-the SpatialMamba classifier."""
+(accunet_tpu/models/__init__.py): the ACC-UNet family, all 26 SegMamba
+names (the baseline, the hybrid ladder and the text-conditioned and
+Spatial-Mamba variants), UNeXt, the UNext_CMRF family (whose unported
+variants raise NotImplementedError when built), MedMamba and the
+SpatialMamba classifier."""
 
 from __future__ import annotations
 
@@ -19,15 +20,24 @@ from accunet_tpu_torch.models.acc_unet import (
     ACC_UNet_W,
     ACCUNet,
 )
-from accunet_tpu_torch.models.medmamba import Backbone_SpatialMamba, SpatialMamba
+from accunet_tpu_torch.models.medmamba import VSSM, Backbone_SpatialMamba, SpatialMamba
 from accunet_tpu_torch.models.segmamba import VARIANTS as _SEGMAMBA_VARIANTS
 from accunet_tpu_torch.models.segmamba import SegMamba, build_segmamba
 from accunet_tpu_torch.models.unext import UNext, UNext_S
 from accunet_tpu_torch.models.unext_cmrf import VARIANTS as _CMRF_VARIANTS
 from accunet_tpu_torch.models.unext_cmrf import build_unext_cmrf
+from accunet_tpu_torch.models.swin_unet import WindowAttention
 from accunet_tpu_torch.nn.acc_blocks import MLFC
+from accunet_tpu_torch.nn.attention import TGDC, MDTAAttention, TorchMultiheadAttention
 from accunet_tpu_torch.nn.kan import FractionalJacobiNeuralBlock, KANLinear
-from accunet_tpu_torch.nn.ssm import BiMamba, StateFusion, StructureAwareSSM
+from accunet_tpu_torch.nn.ss2d import SS2D
+from accunet_tpu_torch.nn.ssm import (
+    BiMamba,
+    MambaVisionMixer,
+    SpatialStateFusion,
+    StateFusion,
+    StructureAwareSSM,
+)
 
 registry: Dict[str, Callable] = {
     "ACC_UNet": ACC_UNet,
@@ -35,6 +45,7 @@ registry: Dict[str, Callable] = {
     "ACC_UNet_W": ACC_UNet_W,
     # SegMamba builders take in_chans/out_chans, as in JAX
     **{name: functools.partial(build_segmamba, name) for name in _SEGMAMBA_VARIANTS},
+    "MedMamba": VSSM,
     "SpatialMamba": SpatialMamba,
     "Backbone_SpatialMamba": Backbone_SpatialMamba,
     "UNext": UNext,
@@ -51,7 +62,8 @@ def build(name: str, **kwargs):
 
 
 def _lecun_normal(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
-    # flax lecun_normal: truncated normal, stddev corrected for the cut
+    # flax lecun_normal: truncated normal, stddev corrected for the cut; a raw
+    # parameter's fan-in is the product of all but its last axis
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
 
@@ -74,7 +86,15 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
     flax's fan-in of a raw parameter (its axis -2), StateFusion's kernels and
     alpha one; KANLinear's base_weight and spline_scaler he-uniform (fan-in
     axis -2 too), spline_weight normal(0.1 / grid_size); the FJNB alpha =
-    beta = 1, gamma = 0. Draws come from `generator` in module order."""
+    beta = 1, gamma = 0. The hybrid family's: MambaVisionMixer's A_log and
+    D as BiMamba's; SS2D's per-direction x_proj_weight and dt_projs_weight
+    lecun-normal (fan-in: the product of all but the last axis, as flax
+    computes it for a 3-D parameter), A_logs, Ds and dt_projs_bias as
+    StructureAwareSSM's; MDTA's temperature, TGDC's gamma and
+    SpatialStateFusion's alpha one; the packed attention in_proj_weight
+    xavier-uniform with a zero in_proj_bias; the window attention's
+    relative-position table normal(0.02). Draws come from `generator` in
+    module order."""
     for mod in model.modules():
         if isinstance(mod, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             w = mod.weight
@@ -85,10 +105,25 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
             _lecun_normal(w, fan_in, generator)
             if mod.bias is not None:
                 mod.bias.zero_()
-        elif isinstance(mod, StructureAwareSSM):
+        elif isinstance(mod, (StructureAwareSSM, SS2D)):
             for w in (mod.x_proj_weight, mod.dt_projs_weight):
-                _lecun_normal(w, w.shape[-2], generator)
+                _lecun_normal(w, math.prod(w.shape[:-1]), generator)
             mod.reset_ssm_parameters()
+        elif isinstance(mod, (BiMamba, MambaVisionMixer)):
+            mod.reset_ssm_parameters()
+        elif isinstance(mod, MDTAAttention):
+            mod.temperature.fill_(1.0)
+        elif isinstance(mod, TGDC):
+            mod.gamma.fill_(1.0)
+        elif isinstance(mod, SpatialStateFusion):
+            mod.alpha.fill_(1.0)
+        elif isinstance(mod, TorchMultiheadAttention):
+            w = mod.in_proj_weight
+            limit = math.sqrt(6.0 / (w.shape[0] + w.shape[1]))
+            nn.init.uniform_(w, -limit, limit, generator=generator)
+            mod.in_proj_bias.zero_()
+        elif isinstance(mod, WindowAttention):
+            nn.init.normal_(mod.relative_position_bias_table, 0.0, 0.02, generator=generator)
         elif isinstance(mod, StateFusion):
             for w in (mod.kernel_3, mod.kernel_3_1, mod.kernel_3_2, mod.alpha):
                 w.fill_(1.0)
@@ -104,11 +139,9 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
             mod.reset_parameters()
         elif isinstance(mod, MLFC) and hasattr(mod, "W"):
             mod.W.zero_()
-        elif isinstance(mod, BiMamba):
-            mod.reset_ssm_parameters()
     return model
 
 
 __all__ = ["ACCUNet", "ACC_UNet", "ACC_UNet_Lite", "ACC_UNet_W", "Backbone_SpatialMamba",
-           "SegMamba", "SpatialMamba", "UNext", "UNext_S", "build", "build_segmamba",
+           "SegMamba", "SpatialMamba", "UNext", "UNext_S", "VSSM", "build", "build_segmamba",
            "build_unext_cmrf", "init_parameters", "registry"]

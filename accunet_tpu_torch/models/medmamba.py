@@ -1,6 +1,14 @@
-"""The Spatial-Mamba classifier in torch.nn on NHWC tensors: counterpart of
-accunet_tpu/models/medmamba.py (`SpatialMambaStem`, `_ConvLayer`,
-`SpatialMambaDownSampling`, `SpatialMamba`, `Backbone_SpatialMamba`).
+"""MedMamba and the Spatial-Mamba classifier in torch.nn on NHWC tensors:
+counterpart of accunet_tpu/models/medmamba.py (`PatchMerging2D`, `VSSM`,
+`SpatialMambaStem`, `_ConvLayer`, `SpatialMambaDownSampling`,
+`SpatialMamba`, `Backbone_SpatialMamba`).
+
+    VSSM (registry name MedMamba): a 4x4/4 patch conv + LayerNorm, stages
+        of SSConvSSM blocks (nn/ss2d.py) with PatchMerging2D (the 2x2
+        neighbours concatenated [x00, x10, x01, x11] -> LayerNorm -> Linear
+        to 2x the width, no bias) between them -> global mean (no final
+        norm, as the reference ships it) -> Linear head: float32 logits
+        (B, num_classes)
 
     patch_embed (stem): conv 3x3/2 -> (conv 3x3, conv 3x3) + residual ->
         conv 3x3/2 to 4x the width -> 1x1 project, bias-free convs with BN
@@ -14,8 +22,7 @@ Attribute names follow the JAX tree under `state_dict_from_jax`: the flax
 names `conv2_0`, `conv_0` become ModuleList entries, `layers_0_blocks_1`
 becomes `layers_0_blocks[1]` and `layers_0_downsample` stays as it is. BN
 is flax's (momentum 0.9, so 0.1 in torch; eps 1e-5). JAX's `use_kan_ffn`,
-which its blocks ignore, is not taken. Not ported yet: VSSM (`MedMamba`),
-which needs nn/ss2d.py (ROADMAP Queue 1 item 6).
+which its blocks ignore, is not taken.
 """
 
 from __future__ import annotations
@@ -27,7 +34,50 @@ import torch.nn.functional as F
 from torch import nn
 
 from accunet_tpu_torch.nn.acc_blocks import BatchNorm
+from accunet_tpu_torch.nn.ss2d import SSConvSSM
 from accunet_tpu_torch.nn.ssm import SpatialMambaBlock
+
+
+class PatchMerging2D(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.norm = nn.LayerNorm(4 * dim, eps=1e-5)
+        self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2], x[:, 0::2, 1::2], x[:, 1::2, 1::2]],
+                      dim=-1)
+        return self.reduction(self.norm(y))
+
+
+class VSSM(nn.Module):
+    """MedMamba's classifier on (B, H, W, n_channels), H and W divisible by
+    patch_size * 2^(stages - 1)."""
+
+    def __init__(self, n_channels: int = 3, num_classes: int = 2, patch_size: int = 4,
+                 depths: Sequence[int] = (2, 2, 4, 2), dims: Sequence[int] = (96, 192, 384, 768),
+                 d_state: int = 16):
+        super().__init__()
+        self.depths = list(depths)
+        self.patch_embed_proj = nn.Conv2d(n_channels, dims[0], patch_size, stride=patch_size)
+        self.patch_embed_norm = nn.LayerNorm(dims[0], eps=1e-5)
+        for i, depth in enumerate(self.depths):
+            setattr(self, f"layers_{i}_blocks",
+                    nn.ModuleList(SSConvSSM(dims[i], d_state) for _ in range(depth)))
+            if i < len(self.depths) - 1:
+                setattr(self, f"layers_{i}_downsample", PatchMerging2D(dims[i]))
+        self.head = nn.Linear(dims[len(self.depths) - 1], num_classes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.head.weight.dtype)
+        x = self.patch_embed_proj(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        x = self.patch_embed_norm(x)
+        for i in range(len(self.depths)):
+            for block in getattr(self, f"layers_{i}_blocks"):
+                x = block(x)
+            if i < len(self.depths) - 1:
+                x = getattr(self, f"layers_{i}_downsample")(x)
+        return self.head(x.mean(dim=(1, 2))).float()
 
 
 class _ConvLayer(nn.Module):

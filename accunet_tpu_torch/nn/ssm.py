@@ -31,8 +31,22 @@ Spatial-Mamba (`StateFusion`, `StructureAwareSSM`, `SpatialMambaMLP`,
 
 The return-hidden scan writes h as (B, L, D, N), which is the NHWC map
 itself, so the fusion takes it without a copy. The depthwise convs are
-cuDNN's grouped convs, as JAX's are XLA's (`nn.Conv`). Not ported yet:
-MambaVisionMixer.
+cuDNN's grouped convs, as JAX's are XLA's (`nn.Conv`).
+
+`MambaVisionMixer`, the hybrid TransformerMambaBlock's mixer, on tokens
+(B, L, C), with dh = expand * C / 2:
+
+    xs, z = split(in_proj(x))                     # (B, L, dh) each, no bias
+    xs = silu(conv1d_x(xs)); z = silu(conv1d_z(z)) # 'same' depthwise, no bias
+    (dt, B, C) = x_proj(xs); dt = dt @ dt_proj.weight.T + dt_proj.bias
+    y = selective_scan(xs, dt, -exp(A_log), B, C, D, z=None,
+                       delta_bias=dt_proj.bias, softplus)   # d_state 8
+    [y = SpatialStateFusion(y as the (B, H, W, dh) map)]
+    out = out_proj(concat(y, z))
+
+dt_proj's bias enters twice, in the product and as delta_bias, as the
+reference (and JAX) do. `SpatialStateFusion` pads with zeros, unlike
+StateFusion's replicate padding.
 """
 
 from __future__ import annotations
@@ -44,7 +58,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from accunet_tpu_torch.nn.kan import KAN
-from accunet_tpu_torch.ops.conv import conv2d
+from accunet_tpu_torch.ops.conv import conv2d, depthwise_conv1d
 from accunet_tpu_torch.ops.selective_scan import selective_scan, selective_scan_rh
 
 
@@ -104,6 +118,80 @@ class BiMamba(nn.Module):
         if self.if_devide_out:
             y = y / 2
         return self.out_proj(y)
+
+
+def ssm_init(module: nn.Module, d_state: int, a_name: str, d_name: str) -> None:
+    """A_log = log(1..d_state) on every row, D = 1, for parameters of any
+    leading shape (the JAX initialisers)."""
+    a = torch.log(torch.arange(1, d_state + 1, dtype=torch.float32))
+    getattr(module, a_name).copy_(a.expand_as(getattr(module, a_name)))
+    getattr(module, d_name).fill_(1.0)
+
+
+class SpatialStateFusion(nn.Module):
+    """y (B, H, W, D) -> the alpha-weighted sum of depthwise 3x3 convs (with
+    bias) at dilations 1, 3 and 5, each zero-padded to keep the map."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.dim = dim
+        self.dw1 = nn.Conv2d(dim, dim, 3, groups=dim)
+        self.dw3 = nn.Conv2d(dim, dim, 3, groups=dim)
+        self.dw5 = nn.Conv2d(dim, dim, 3, groups=dim)
+        self.alpha = nn.Parameter(torch.ones(3))
+
+    def forward(self, y: torch.Tensor) -> torch.Tensor:
+        x = y.permute(0, 3, 1, 2)
+        a = self.alpha.to(y.dtype)
+        out = 0
+        for i, (conv, dil) in enumerate(((self.dw1, 1), (self.dw3, 3), (self.dw5, 5))):
+            out = out + a[i] * F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype),
+                                        padding=dil, dilation=dil, groups=self.dim)
+        return out.permute(0, 2, 3, 1)
+
+
+class MambaVisionMixer(nn.Module):
+    def __init__(self, d_model: int, d_state: int = 8, d_conv: int = 3, expand: int = 1,
+                 dt_rank: int | None = None, spatial_fusion: bool = False):
+        super().__init__()
+        d_inner = expand * d_model
+        dh = d_inner // 2
+        self.dh, self.d_state = dh, d_state
+        self.dt_rank = dt_rank or math.ceil(d_model / 16)
+        self.in_proj = nn.Linear(d_model, d_inner, bias=False)
+        self.A_log = nn.Parameter(torch.empty(dh, d_state))
+        self.D = nn.Parameter(torch.empty(dh))
+        # the reference's conv1d bias is off (its conv_bias // 2 quirk)
+        self.conv1d_x = nn.Conv1d(dh, dh, d_conv, groups=dh, bias=False)
+        self.conv1d_z = nn.Conv1d(dh, dh, d_conv, groups=dh, bias=False)
+        self.x_proj = nn.Linear(dh, self.dt_rank + 2 * d_state, bias=False)
+        self.dt_proj = nn.Linear(self.dt_rank, dh)
+        self.spatial_fusion_mod = SpatialStateFusion(dh) if spatial_fusion else None
+        self.out_proj = nn.Linear(d_inner, d_model, bias=False)
+        self.reset_ssm_parameters()
+
+    @torch.no_grad()
+    def reset_ssm_parameters(self) -> None:
+        ssm_init(self, self.d_state, "A_log", "D")
+
+    def forward(self, x: torch.Tensor, spatial_hw: tuple[int, int] | None = None) -> torch.Tensor:
+        """x (B, L, C) -> (B, L, C); spatial_hw (H, W) with H * W = L shapes
+        the scan output's map for the fusion (default square)."""
+        b, l, _ = x.shape
+        dh, n = self.dh, self.d_state
+        xs, z = self.in_proj(x).split(dh, dim=-1)
+        xs = F.silu(depthwise_conv1d(xs.transpose(1, 2), self.conv1d_x.weight))  # (B, dh, L)
+        z = F.silu(depthwise_conv1d(z.transpose(1, 2), self.conv1d_z.weight))
+        dt, bmat, cmat = self.x_proj(xs.transpose(1, 2)).split([self.dt_rank, n, n], dim=-1)
+        dt = F.linear(dt, self.dt_proj.weight.to(dt.dtype), self.dt_proj.bias.to(dt.dtype))
+        y = selective_scan(xs, dt.transpose(1, 2), -torch.exp(self.A_log.float()),
+                           bmat.transpose(1, 2), cmat.transpose(1, 2), self.D,
+                           delta_bias=self.dt_proj.bias, delta_softplus=True)
+        if self.spatial_fusion_mod is not None:
+            hh, ww = spatial_hw or (round(l ** 0.5),) * 2
+            ymap = self.spatial_fusion_mod(y.transpose(1, 2).reshape(b, hh, ww, dh))
+            y = ymap.reshape(b, l, dh).transpose(1, 2)
+        return self.out_proj(torch.cat([y, z], dim=1).transpose(1, 2))
 
 
 class StateFusion(nn.Module):

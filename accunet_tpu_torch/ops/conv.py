@@ -39,6 +39,15 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = No
     return y
 
 
+def depthwise_conv1d(x: torch.Tensor, weight: torch.Tensor,
+                     bias: torch.Tensor | None = None) -> torch.Tensor:
+    """Depthwise 'SAME' convolution over the last axis of x (B, C, L).
+    weight (C, 1, k) (nn.Conv1d's layout)."""
+    lo, hi = _same_pad(weight.shape[-1])
+    return F.conv1d(F.pad(x, (lo, hi)), weight.to(x.dtype),
+                    None if bias is None else bias.to(x.dtype), groups=weight.shape[0])
+
+
 def depthwise_conv2d(x: torch.Tensor, weight: torch.Tensor,
                      bias: torch.Tensor | None = None) -> torch.Tensor:
     """Depthwise 'SAME' convolution, odd kernels. weight (C, 1, kh, kw). Its

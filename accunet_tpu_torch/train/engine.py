@@ -55,6 +55,14 @@ class TrainStepFns:
     state: TrainState
 
 
+def forward(model: nn.Module, batch):
+    """The model on a batch: model(image, text_emb) for a text-conditioned
+    batch (the prompts' embeddings under "text_emb"), else model(image)."""
+    if batch.get("text_emb") is not None:
+        return model(batch["image"], batch["text_emb"])
+    return model(batch["image"])
+
+
 def _main_output(preds):
     if isinstance(preds, (tuple, list)):
         if len(preds) == 2 and isinstance(preds[0], (tuple, list)):
@@ -74,7 +82,8 @@ def make_train_fns(
 ) -> TrainStepFns:
     """Steps and initial state for `model`, whose parameters are already
     initialised and on their device. Batches are {'image', 'mask'} tensors
-    on the model's device; loss_fn(preds, masks)."""
+    on the model's device, with 'text_emb' for a text-conditioned model (see
+    `forward`); loss_fn(preds, masks)."""
     schedule = cosine_warm_restarts(
         learning_rate, t_0=10, t_mult=1, eta_min=1e-5, steps_per_epoch=steps_per_epoch
     )
@@ -93,7 +102,7 @@ def make_train_fns(
         for group in state.optimizer.param_groups:
             group["lr"] = lr
         state.model.train()
-        preds = state.model(batch["image"])
+        preds = forward(state.model, batch)
         loss = loss_fn(preds, batch["mask"])
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -112,7 +121,7 @@ def make_train_fns(
     def eval_step(state: TrainState, batch):
         state.model.eval()
         with torch.no_grad():
-            preds = state.model(batch["image"])
+            preds = forward(state.model, batch)
             main = _main_output(preds)
             return {
                 "loss": loss_fn(preds, batch["mask"]),
@@ -123,7 +132,7 @@ def make_train_fns(
     def predict_step(state: TrainState, batch):
         state.model.eval()
         with torch.no_grad():
-            return _main_output(state.model(batch["image"]))
+            return _main_output(forward(state.model, batch))
 
     return TrainStepFns(train_step, eval_step, predict_step, state)
 

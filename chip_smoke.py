@@ -132,7 +132,31 @@ From the root of a checkout, with one CUDA device:
      their plain versions at the model's shapes;
  33. runs accunet_tpu_torch.cli.profile --trace on ACC_UNet b8 224x224 and
      checks its trace report (non-empty, hanc_block among the top ops), the
-     report's device ms beside the CUDA-event ms of the same window.
+     report's device ms beside the CUDA-event ms of the same window;
+ 34. holds the fused selective scan at the hybrid family's flags (no z, D,
+     bias, softplus) against its plain versions: MambaVisionMixer's N 8 at
+     the hybrid rung's four stages (b8, L 12544-196, D 24-192), one SS2D
+     direction of TokenVSSM (N 8, D 96, L 12544) and of MedMamba (N 16, D
+     96, L 3136); out, the last state and the gradients, the backward
+     bitwise on a second call; and times both kernels there beside their
+     plain versions and bounds;
+ 35. times, fp32 at 224x224, Segmamba_hybrid_gsc_KAN_PE_ds_CrossAttn_HSLCA
+     (the ladder's text rung) and the flagship ..._HSLCA_SpatialMamba, both
+     with FakeTextEncoder text, and Segmamba_hybrid_gsc_VSS: inference at b8
+     and the train step at b8 or, where it does not fit, the largest of b4
+     and b2 that does, with peak memory and the scans a forward and a step;
+     MedMamba's b8 forward; the device time of SS2D's copies in one VSS
+     forward under torch.profiler;
+ 36. runs the train entry point with the two text models on folders that
+     hold a prompt CSV (the rung with --n-classes 2) at phase 35's batch,
+     as in phase 7, and checks that every forward met the prompts'
+     embeddings and the launches: the rung 8 fused forwards and backwards a
+     step and 8 forwards a validation forward, the flagship the same of the
+     rh kernels;
+ 37. compares those three models (the text ones with text) and MedMamba
+     at full width, b1 64x64, GPU vs CPU, and the GPU forward's scan
+     launches (8 fused, 8 rh, 32 fused, 40 fused). Phases 34-37 print their
+     seconds.
 Phases print their seconds. It prints a JSON line of the kernels (the
 launches of every path, the new ones too), then as its last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -514,15 +538,47 @@ def check_autograd_fns(dev):
         raise SmokeError(f"autograd functions disagree with their plain versions: {bad}")
 
 
-def run_train_cli(counters, model, want_fn, extra=(), hw=HW, batch=B):
-    """Phases 7, 13, 21, 27, 30 and 31: the train entry point for `model`
-    (with the arguments `extra`) on a synthetic ISIC-style folder of hw x hw
-    images in batches of `batch`: two epochs with a
-    checkpoint directory, then --resume auto for a third. Returns the
-    launches of the train steps and of the validation forwards apart: the
-    counts are set to 0 before each epoch's train or validation pass
-    (engine.run_epoch, which fit calls) and read after it. want_fn(steps,
-    val_batches) gives the expected launches."""
+def write_prompts(root):
+    """A Filename,Text prompt CSV naming every image of the npy folder."""
+    names = sorted(os.listdir(os.path.join(root, "images")))
+    with open(os.path.join(root, "prompts.csv"), "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["Filename", "Text"])
+        w.writerows([n, f"lesion {i}: irregular border, {'dark' if i % 2 else 'light'} centre"]
+                    for i, n in enumerate(names))
+
+
+@contextlib.contextmanager
+def text_recorder():
+    """Counts SegMamba forwards with and without text_tokens while open."""
+    from accunet_tpu_torch.models.segmamba import SegMamba
+
+    seen = {"with_text": 0, "without_text": 0}
+    forward = SegMamba.forward
+
+    def recording(self, x, text_tokens=None):
+        seen["without_text" if text_tokens is None else "with_text"] += 1
+        return forward(self, x, text_tokens)
+
+    SegMamba.forward = recording
+    try:
+        yield seen
+    finally:
+        SegMamba.forward = forward
+
+
+def run_train_cli(counters, model, want_fn, extra=(), hw=HW, batch=B, prompts=False):
+    """Phases 7, 13, 21, 27, 30, 31 and 36: the train entry point for
+    `model` (with the arguments `extra`) on a synthetic ISIC-style folder of
+    hw x hw images in batches of `batch`: two epochs with a checkpoint
+    directory, then --resume auto for a third. With `prompts` the train and
+    validation folders (`batch` and `batch` / 2 images: a step and a
+    validation batch an epoch) each hold a prompt CSV, and every forward
+    must have met the prompts' embeddings. Returns the launches of the train
+    steps and of the validation forwards apart: the counts are set to 0
+    before each epoch's train or validation pass (engine.run_epoch, which
+    fit calls) and read after it. want_fn(steps, val_batches) gives the
+    expected launches."""
     from accunet_tpu_torch.cli import train as cli
     from accunet_tpu_torch.train import engine
 
@@ -539,10 +595,19 @@ def run_train_cli(counters, model, want_fn, extra=(), hw=HW, batch=B):
             launches["train_steps" if train else "validation"][name] += fn.launches
         return out
 
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, text_recorder() as seen:
         ckpt = os.path.join(tmp, "ckpt")
-        argv = ["--model", model, "--synthetic", "--img-size", str(hw), "--batch", str(batch),
+        argv = ["--model", model, "--img-size", str(hw), "--batch", str(batch),
                 "--device", "cuda", "--ckpt-dir", ckpt, "--check-numerics", *extra]
+        if prompts:
+            n_classes = int(extra[extra.index("--n-classes") + 1]) if "--n-classes" in extra else 1
+            for split, n in (("train", batch), ("val", batch // 2)):
+                write_folder(os.path.join(tmp, split), n, hw, n_classes)
+                write_prompts(os.path.join(tmp, split))
+            argv += ["--train-dir", os.path.join(tmp, "train"),
+                     "--val-dir", os.path.join(tmp, "val")]
+        else:
+            argv.append("--synthetic")
         engine.run_epoch = counted_run_epoch
         try:
             t0 = time.perf_counter()
@@ -565,10 +630,14 @@ def run_train_cli(counters, model, want_fn, extra=(), hw=HW, batch=B):
     want = want_fn(steps, val_batches)
     if launches != want:
         raise SmokeError(f"train path launches {launches}, expected {want}")
-    log(f"  {model} {' '.join(extra)} train ({hw}x{hw}, b{batch}): {steps} steps + {val_batches} "
+    if prompts and seen != {"with_text": steps + val_batches, "without_text": 0}:
+        raise SmokeError(f"{model}: the prompts reached {seen} forwards of {steps} steps and "
+                         f"{val_batches} validation batches")
+    log(f"  {model} {' '.join(extra)} train ({hw}x{hw}, b{batch}"
+        + (", prompt CSV" if prompts else "") + f"): {steps} steps + {val_batches} "
         f"val batches in {seconds:.2f} s (3 epochs, "
         f"resumed after 2 from {saved[-1]}), losses {[round(v, 4) for v in losses]}, kept "
-        f"{kept}; launches {launches}")
+        f"{kept}; launches {launches}" + (f"; SegMamba forwards {seen}" if prompts else ""))
     return launches
 
 
@@ -2272,6 +2341,383 @@ def run_profile_trace():
     return res
 
 
+# ------------------------------------- the hybrid SegMamba family and text
+# the ladder's text rung (TransformerMambaBlocks: one MambaVisionMixer, so one
+# fused selective scan without z at d_state 8, a block) and the flagship
+# (SpatialMambaBlocks: one return-hidden scan a block), both HSLCA-fused; the
+# rung returns the deep-supervision tuple, so it trains with 2 classes
+# (multiclass_dice_ce; ROADMAP Queue 3), the flagship one binary head
+TEXT_TMB, TEXT_FLAGSHIP = ("Segmamba_hybrid_gsc_KAN_PE_ds_CrossAttn_HSLCA",
+                           "Segmamba_hybrid_gsc_KAN_PE_ds_CrossAttn_HSLCA_SpatialMamba")
+VSS_VARIANT = "Segmamba_hybrid_gsc_VSS"  # the mixer is TokenVSSM's SS2D: 4 scans a block
+# (name, out channels, text): the three SegMamba models of phases 34-37
+HYBRID_MODELS = ((TEXT_TMB, 2, True), (TEXT_FLAGSHIP, 1, True), (VSS_VARIANT, 1, False))
+MVM_PER_FORWARD = 8  # 2 blocks x 4 stages, one scan each
+SS2D_PER_FORWARD = 4 * MVM_PER_FORWARD
+HYB_CMP_HW = 64
+MVM_N = 8  # TransformerMambaBlock's d_state
+# the fused scan at the hybrid family's flags (D, bias, softplus, no z):
+# MambaVisionMixer at the rung's four stages (D = C / 2), one SS2D direction
+# of TokenVSSM at stage 0 (D = 2C, N 8) and of MedMamba's first stage (b8
+# 224x224: 56x56, D 96, N 16): (name, B, L, D, N)
+MVM_SHAPES = tuple((f"mvm.stage{i}", B, (HW // 2 >> i) ** 2, f // 2, MVM_N)
+                   for i, f in enumerate(SM_FEAT))
+HYB_SCAN_SHAPES = MVM_SHAPES + (("vss.stage0", B, (HW // 2) ** 2, 2 * SM_FEAT[0], MVM_N),
+                                ("medmamba.stage0", B, (HW // 4) ** 2, 96, N_STATES))
+HYB_TAPS = ("vit.stages.0.1", "vit.stages.3.1", "encoder1", "encoder5", "decoder1")
+
+
+def hyb_scan_ops(g, b, l, d, n):
+    """fused_inputs without z, A = -(1..n) per row (MambaVisionMixer's and
+    SS2D's init)."""
+    ops, gy = fused_inputs(g, b, l, d, n)
+    return (*ops[:6], None, ops[7]), gy
+
+
+def check_hybrid_scan():
+    """Phase 34: selective_scan_fwd (with its chunk states) and
+    selective_scan_bwd against their plain versions at HYB_SCAN_SHAPES with
+    the hybrid family's flags (no z, D, bias, softplus; no cotangent on the
+    last state, which the models do not use): out, the last state and the
+    seven gradients rel <= FP32_TOL, the backward bitwise on a second call.
+    Returns {kernel: max abs error vs plain}."""
+    from accunet_tpu_torch.ops.kernels import selective_scan as SS
+
+    g = torch.Generator("cuda").manual_seed(34)
+    worst, bad = {"selective_scan_fwd": 0.0, "selective_scan_bwd": 0.0}, []
+    for name, b, l, d, n in HYB_SCAN_SHAPES:
+        ops, gy = hyb_scan_ops(g, b, l, d, n)
+        out, last, states = SS.selective_scan_fwd(*ops, True, save_states=True)
+        grads = SS.selective_scan_bwd(*ops, True, states, gy)
+        again = SS.selective_scan_bwd(*ops, True, states, gy)
+        torch.cuda.synchronize()
+        same = all(p is None and q is None or torch.equal(p, q) for p, q in zip(grads, again))
+        del again
+        want = SS.selective_scan_fwd_plain(*ops, True)
+        f_errs = [rel_err(out, want[0]), rel_err(last, want[1])]
+        want = SS.selective_scan_bwd_plain(*ops, True, gy)
+        if grads[6] is not None or want[6] is not None:
+            raise SmokeError(f"{name}: a z gradient without z")
+        b_errs = {k: rel_err(p, q) for k, p, q in zip(
+            ("du", "ddelta", "dA", "dB", "dC", "dD", "dz", "dbias"), grads, want) if k != "dz"}
+        rel = max([e[1] for e in f_errs] + [e[1] for e in b_errs.values()])
+        ok = rel <= FP32_TOL and same
+        worst["selective_scan_fwd"] = max(worst["selective_scan_fwd"], max(e[0] for e in f_errs))
+        worst["selective_scan_bwd"] = max(worst["selective_scan_bwd"],
+                                          max(e[0] for e in b_errs.values()))
+        log(f"  {'ok ' if ok else 'BAD'} selective_scan {name:15s} B{b} L{l:5d} D{d:3d} N{n:2d}, "
+            f"no z: out rel {f_errs[0][1]:.3e}, last state {f_errs[1][1]:.3e}; "
+            + ", ".join(f"{k} {v[1]:.3e}" for k, v in b_errs.items())
+            + f" (tol {FP32_TOL:g}); backward bitwise on a second call {same}")
+        if not ok:
+            bad.append(name)
+        del ops, gy, out, last, states, grads, want
+        torch.cuda.empty_cache()
+    if bad:
+        raise SmokeError(f"the fused selective scan without z disagrees with its plain versions: "
+                         f"{bad}")
+    return worst
+
+
+def time_hybrid_scan():
+    """Phase 34b: at each of HYB_SCAN_SHAPES, selective_scan_fwd (no chunk
+    states, as inference runs it) and selective_scan_bwd (from the chunk
+    states) against their plain versions and the least time the card could
+    take (bound_ms: bytes, or 7 / 20 fp32 operations a (t, n) at 67
+    TFLOP/s)."""
+    from accunet_tpu_torch.ops.kernels import selective_scan as SS
+
+    g = torch.Generator("cuda").manual_seed(35)
+    times = {}
+    for name, b, l, d, n in HYB_SCAN_SHAPES:
+        ops, gy = hyb_scan_ops(g, b, l, d, n)
+        pairs = b * l * d * n
+        with torch.inference_mode():
+            _, _, states = SS.selective_scan_fwd(*ops, True, save_states=True)
+            cases = {
+                "selective_scan_fwd": Case(
+                    "selective_scan_fwd", name, lambda: SS.selective_scan_fwd(*ops, True),
+                    lambda: SS.selective_scan_fwd_plain(*ops, True), ops, 7 * pairs),
+                "selective_scan_bwd": Case(
+                    "selective_scan_bwd", name,
+                    lambda: SS.selective_scan_bwd(*ops, True, states, gy),
+                    lambda: SS.selective_scan_bwd_plain(*ops, True, gy), (*ops, states, gy),
+                    20 * pairs)}
+            for kname, case in cases.items():
+                out = case.run()
+                bound, bound_by = bound_ms(case, out)
+                del out
+                k_ms = time_ms(case.run)
+                p_ms = time_ms(case.plain, iters=2, warmup=1)
+                times[(kname, name)] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": None,
+                                        "bound_ms": bound, "bound_by": bound_by}
+                log(f"  {kname:18s} {name:15s} B{b} L{l:5d} D{d:3d} N{n:2d}: kernel {k_ms:7.3f} ms"
+                    f"   plain {p_ms:8.3f} ms   bound {bound:6.3f} ms ({bound_by}), "
+                    f"{100 * bound / k_ms:.1f}% of it")
+        del ops, gy, states, cases
+        torch.cuda.empty_cache()
+    return times
+
+
+def hybrid_model(name, n_classes):
+    """A SegMamba registry model at full width and depth (3 channels in),
+    seeded with the JAX package's initialisers, eval mode, on the CPU."""
+    from accunet_tpu_torch.models import build, init_parameters
+
+    return init_parameters(build(name, in_chans=3, out_chans=n_classes),
+                           torch.Generator().manual_seed(0)).eval()
+
+
+def fake_text(b):
+    """(b, 16, 768) FakeTextEncoder embeddings of b prompts (the stub that
+    ClinicalTextEncoder falls back to without ClinicalBERT's weights)."""
+    from accunet_tpu_torch.nn.text import FakeTextEncoder
+
+    return torch.from_numpy(FakeTextEncoder()([f"lesion {i}, irregular border"
+                                               for i in range(b)]))
+
+
+def scan_counts():
+    from accunet_tpu_torch.ops.kernels import selective_scan as SS
+
+    return {k: getattr(SS, k).launches for k in ("selective_scan_fwd", "selective_scan_bwd",
+                                                  "selective_scan_rh_fwd",
+                                                  "selective_scan_rh_bwd")}
+
+
+def time_hybrid(name, n_classes, text):
+    """Phase 35: `name` at full width, 224x224, fp32 (TF32 off): inference
+    at b8 and the train step (its configured loss on one head, or
+    multiclass_dice_ce on the deep-supervision tuple; backward; Adam) at b8
+    or, where b8 does not fit in the card's memory, the largest of 4 and 2
+    that does: ms, img/s, peak memory and the scan launches a forward and a
+    step; CUDA events, 3 iterations after one warm-up (and the counted
+    call). Returns (the train batch, the numbers)."""
+    from accunet_tpu_torch.train import losses as L
+    from accunet_tpu_torch.train import metrics as M
+    from accunet_tpu_torch.train.engine import make_train_fns
+
+    model = hybrid_model(name, n_classes)
+    g = torch.Generator("cuda").manual_seed(35)
+    m = copy.deepcopy(model).cuda()
+    x = torch.rand(B, HW, HW, 3, generator=g, device="cuda")
+    t = fake_text(B).cuda() if text else None
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        c0 = scan_counts()
+        m(x, t)
+        per_fwd = {k: v - c0[k] for k, v in scan_counts().items() if v != c0[k]}
+        ms = time_ms(lambda: m(x, t), iters=3, warmup=1)
+    out = {"inference_fp32": {"batch": B, "ms_per_batch": ms, "img_per_s": B * 1e3 / ms,
+                              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                              "scans_per_forward": per_fwd}}
+    del m
+    if n_classes > 1:
+        loss = dict(loss_fn=L.multiclass_dice_ce, dice_show=L.multiclass_dice_show,
+                    iou_fn=M.multiclass_batch_iou)
+    else:
+        loss = dict(loss_fn=L.binary_dice_bce)
+    tried = []
+    for b in (B, B // 2, B // 4):
+        gc_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            m = copy.deepcopy(model).cuda().train()
+            fns = make_train_fns(m, **loss)
+            batch = {"image": x[:b], "mask": torch.randint(
+                0, n_classes + 1, (b, HW, HW, 1), generator=g, device="cuda").float()}
+            if text:
+                batch["text_emb"] = t[:b]
+            c0 = scan_counts()
+            fns.train_step(fns.state, batch)
+            torch.cuda.synchronize()
+            per_step = {k: v - c0[k] for k, v in scan_counts().items() if v != c0[k]}
+            ms = time_ms(lambda: fns.train_step(fns.state, batch), iters=3, warmup=1)
+            _, stats = fns.train_step(fns.state, batch)
+            if not bool(torch.isfinite(stats["loss"])):
+                raise SmokeError(f"non-finite loss in the timed {name} train step")
+        except torch.cuda.OutOfMemoryError:
+            tried.append(b)
+            m = fns = batch = None
+            continue
+        out["train_step_fp32"] = {
+            "batch": b, "ms_per_step": ms, "img_per_s": b * 1e3 / ms,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "scans_per_step": per_step, "out_of_memory_at": tried}
+        break
+    else:
+        raise SmokeError(f"{name}: no train step of batch {B}, {B // 2} or {B // 4} fits")
+    del m, fns, batch
+    gc_cuda()
+    i, s = out["inference_fp32"], out["train_step_fp32"]
+    log(f"  {name} {HW}x{HW} fp32: inference b{B} {i['ms_per_batch']:.3f} ms/batch, "
+        f"{i['img_per_s']:.1f} img/s, peak {i['peak_mem_gib']:.2f} GiB, scans a forward "
+        f"{per_fwd}; train step b{s['batch']} {s['ms_per_step']:.3f} ms/step, "
+        f"{s['img_per_s']:.1f} img/s, peak {s['peak_mem_gib']:.2f} GiB, scans a step "
+        f"{s['scans_per_step']}" + (f" (out of memory at b{tried})" if tried else ""))
+    return s["batch"], out
+
+
+def gc_cuda():
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def time_medmamba():
+    """Phase 35: MedMamba (VSSM at its published widths, 2 classes) b8
+    224x224 fp32 forward, with seeded BN statistics: ms, img/s, peak memory
+    and the fused scans a forward (4 directions x 10 blocks)."""
+    from accunet_tpu_torch.models import build, init_parameters
+
+    m = seeded_bns(init_parameters(build("MedMamba", n_channels=3, num_classes=2),
+                                   torch.Generator().manual_seed(0)), 35).cuda().eval()
+    x = torch.rand(B, HW, HW, 3, generator=torch.Generator("cuda").manual_seed(36), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        c0 = scan_counts()
+        y = m(x)
+        per_fwd = {k: v - c0[k] for k, v in scan_counts().items() if v != c0[k]}
+        ms = time_ms(lambda: m(x), iters=5, warmup=2)
+    if y.shape != (B, 2) or not bool(y.isfinite().all()):
+        raise SmokeError(f"MedMamba: logits {tuple(y.shape)}, finite {bool(y.isfinite().all())}")
+    out = {"batch": B, "ms_per_batch": ms, "img_per_s": B * 1e3 / ms,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "scans_per_forward": per_fwd}
+    log(f"  MedMamba b{B} {HW}x{HW} fp32 forward: {ms:.3f} ms/batch, {out['img_per_s']:.1f} "
+        f"img/s, peak {out['peak_mem_gib']:.2f} GiB, scans a forward {per_fwd}")
+    del m, x
+    gc_cuda()
+    return out
+
+
+def ss2d_copy_share():
+    """Phase 35: one VSS-variant forward (b8 224x224, fp32) under
+    torch.profiler: the device time of the copies made inside the SS2D
+    modules (the column-major and flipped sequences, the contiguous B / C
+    operands, the outputs flipped and transposed back: aten::copy_ and
+    aten::flip under an SS2D forward) against the forward's device time."""
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler import record_function
+    from torch.profiler import ProfilerActivity, profile
+
+    from accunet_tpu_torch.nn.ss2d import SS2D
+
+    m = hybrid_model(VSS_VARIANT, 1).cuda()
+    x = torch.rand(B, HW, HW, 3, generator=torch.Generator("cuda").manual_seed(37), device="cuda")
+    ranges, hooks = [], []
+    for mod in m.modules():
+        if isinstance(mod, SS2D):
+            def pre(_m, _i):
+                ranges.append(record_function("ss2d"))
+                ranges[-1].__enter__()
+
+            def post(_m, _i, _o):
+                ranges.pop().__exit__(None, None, None)
+
+            hooks += [mod.register_forward_pre_hook(pre), mod.register_forward_hook(post)]
+    with torch.inference_mode():
+        m(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            m(x)
+            torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    total = ss2d = copies = 0.0
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CPU:  # a device kernel or copy
+            total += ev.device_time_total
+            continue
+        dev = ev.self_device_time_total  # the kernels this op launched itself
+        anc, names = ev.cpu_parent, set()
+        while anc is not None:
+            names.add(anc.name)
+            anc = anc.cpu_parent
+        if dev and "ss2d" in names:
+            ss2d += dev
+            if ev.name in ("aten::copy_", "aten::flip"):
+                copies += dev
+    del m, x, prof
+    gc_cuda()
+    out = {"forward_device_ms": total / 1e3, "ss2d_device_ms": ss2d / 1e3,
+           "ss2d_copies_device_ms": copies / 1e3,
+           "ss2d_copies_share": copies / total if total else None}
+    log(f"  {VSS_VARIANT} b{B} forward under the profiler: device {total / 1e3:.3f} ms, of it "
+        f"SS2D {ss2d / 1e3:.3f} ms and SS2D's copies {copies / 1e3:.3f} ms "
+        f"({100 * copies / max(total, 1e-9):.1f}%)")
+    return out
+
+
+def hybrid_train_launches(name):
+    """Per train step of the rung: 8 fused forwards (one MambaVisionMixer a
+    block) and 8 fused backwards, per validation forward 8 fused forwards;
+    of the flagship: 8 rh forwards and backwards, 8 rh forwards; nothing
+    else of the port's kernels."""
+    fwd, bwd = (("selective_scan_fwd", "selective_scan_bwd") if name == TEXT_TMB
+                else ("selective_scan_rh_fwd", "selective_scan_rh_bwd"))
+
+    def want(steps, val_batches):
+        zero = dict.fromkeys(KERNELS, 0)
+        return {"train_steps": {**zero, fwd: MVM_PER_FORWARD * steps,
+                                bwd: MVM_PER_FORWARD * steps},
+                "validation": {**zero, fwd: MVM_PER_FORWARD * val_batches}}
+    return want
+
+
+def compare_hybrid_cpu():
+    """Phase 37: the three SegMamba models (the text ones with FakeTextEncoder
+    text) and MedMamba, full width, b1 64x64 fp32: GPU (kernels) vs CPU
+    (plain versions), their outputs and taps rel <= MODEL_TOL, the GPU
+    forward's scan launches as the model's path says."""
+    from accunet_tpu_torch.models import build, init_parameters
+
+    out = {}
+    x = torch.from_numpy(np.random.default_rng(37).standard_normal(
+        (1, HYB_CMP_HW, HYB_CMP_HW, 3), dtype=np.float32))
+    want_scans = {TEXT_TMB: {"selective_scan_fwd": MVM_PER_FORWARD},
+                  TEXT_FLAGSHIP: {"selective_scan_rh_fwd": MVM_PER_FORWARD},
+                  VSS_VARIANT: {"selective_scan_fwd": SS2D_PER_FORWARD},
+                  "MedMamba": {"selective_scan_fwd": 4 * 10}}
+    medmamba = seeded_bns(init_parameters(build("MedMamba", n_channels=3, num_classes=2),
+                                          torch.Generator().manual_seed(0)), 37).eval()
+    for name, n_classes, text in HYBRID_MODELS + (("MedMamba", 2, False),):
+        model = medmamba if name == "MedMamba" else hybrid_model(name, n_classes)
+        taps = () if name == "MedMamba" else HYB_TAPS
+        t = fake_text(1) if text else None
+        args = () if name == "MedMamba" else (t,)
+        gpu = copy.deepcopy(model).cuda()
+        feats = {"cpu": {}, "gpu": {}}
+        hooks = []
+        for side, mdl in (("cpu", model), ("gpu", gpu)):
+            hooks += [mdl.get_submodule(n).register_forward_hook(
+                lambda mod, inp, o, n=n, d=feats[side]: d.__setitem__(n, o.float().cpu()))
+                for n in taps]
+        with torch.inference_mode():
+            want = model(x, *args)
+            c0 = scan_counts()
+            got = gpu(x.cuda(), *[a if a is None else a.cuda() for a in args])
+            scans = {k: v - c0[k] for k, v in scan_counts().items() if v != c0[k]}
+        for h in hooks:
+            h.remove()
+        want = want if isinstance(want, tuple) else (want,)
+        got = got if isinstance(got, tuple) else (got,)
+        errs = {f"out{i}": rel_err(p.cpu(), q)[1] for i, (p, q) in enumerate(zip(got, want))}
+        errs.update({n: rel_err(feats["gpu"][n], feats["cpu"][n])[1] for n in taps})
+        out[name] = max(errs.values())
+        log(f"  {name} b1 {HYB_CMP_HW}x{HYB_CMP_HW}" + (" with text" if text else "")
+            + ", GPU vs CPU: " + ", ".join(f"{k} rel {v:.3e}" for k, v in errs.items())
+            + f" (tol {MODEL_TOL:g}); GPU scans {scans}")
+        if out[name] > MODEL_TOL:
+            raise SmokeError(f"{name} on the GPU disagrees with the CPU")
+        if scans != want_scans[name]:
+            raise SmokeError(f"{name}: scan launches {scans}, expected {want_scans[name]}")
+        del gpu
+        gc_cuda()
+    return out
+
+
 class Phases:
     """Logs each phase's title and, when the next begins (or `end()`), the
     seconds it took."""
@@ -2512,8 +2958,41 @@ def main() -> int:
 
     phase("[33] accunet_tpu_torch.cli.profile --trace (ACC_UNet b8 224x224 fp32) and its report")
     trace = run_profile_trace()
-    phase.end()
     log("  " + json.dumps({"card": card, "gradcam": cam_checks, "trace": trace}))
+
+    phase("[34] the fused selective scan at the hybrid family's flags (no z; N 8 at "
+          "MambaVisionMixer's and TokenVSSM's shapes, N 16 at MedMamba's) vs its plain "
+          "versions; its times")
+    t_hyb = time.perf_counter()
+    for kname, err in check_hybrid_scan().items():
+        worst[kname] = max(worst[kname], err)
+    times.update({(k, c, "float32"): v for (k, c), v in time_hybrid_scan().items()})
+
+    phase(f"[35] timing, {HW}x{HW} fp32: {TEXT_TMB}, {TEXT_FLAGSHIP} (with text) and "
+          f"{VSS_VARIANT}, inference b{B} and the train step; MedMamba's forward; SS2D's copies")
+    hyb_rates, hyb_batch = {}, {}
+    for name, n_cls, text in HYBRID_MODELS:
+        hyb_batch[name], hyb_rates[name] = time_hybrid(name, n_cls, text)
+    hyb_rates["MedMamba"] = time_medmamba()
+    hyb_rates["vss_ss2d_copies"] = ss2d_copy_share()
+
+    phase("[36] the text models through accunet_tpu_torch.cli.train on cuda with a prompt CSV, "
+          "then --resume auto")
+    for tag, name, n_cls, _ in ((("tmb_text",) + HYBRID_MODELS[0]),
+                                (("flagship_text",) + HYBRID_MODELS[1])):
+        extra = ("--n-classes", str(n_cls)) if n_cls > 1 else ()
+        hyb_launches = run_train_cli(counters, name, hybrid_train_launches(name), extra,
+                                     batch=hyb_batch[name], prompts=True)
+        launches[f"{tag}_train_cli_steps"] = hyb_launches["train_steps"]
+        launches[f"{tag}_train_cli_validation"] = hyb_launches["validation"]
+
+    phase(f"[37] GPU vs CPU, b1 {HYB_CMP_HW}x{HYB_CMP_HW}: the text models (with text), "
+          f"{VSS_VARIANT} and MedMamba")
+    hyb_checks = compare_hybrid_cpu()
+    phase.end()
+    log(f"  phases 34-37 took {time.perf_counter() - t_hyb:.1f} s")
+    log("  " + json.dumps({"card": card, "hybrid": hyb_rates, "hybrid_train_batch": hyb_batch,
+                           "hybrid_checks": hyb_checks}))
 
     # the shapes whose times the kernels line lists per kernel
     by_shape = {"hanc_block": ("cnv12", "cnv22", "cnv81", "cnv91"),
@@ -2541,7 +3020,11 @@ def main() -> int:
     # never dispatches its TPU kernel either) count 0 on Segmamba's path and
     # ran only in phases 10 and 14. The rh kernels' path is the Spatial-Mamba
     # variant's train CLI (the forward also runs in its validation forwards);
-    # their entries add every shape of phase 29
+    # their entries add every shape of phase 29. The hybrid paths (phase 36:
+    # the text rung's fused scans without z, the flagship's rh scans) are in
+    # `launches_by_path`, and the fused kernels' `by_shape` adds phase 34's
+    # shapes (MambaVisionMixer's "mvm.stage0-3", "vss.stage0",
+    # "medmamba.stage0")
     meta = {
         "hanc_block": ("accunet_tpu_torch/csrc/hanc_block.cu",
                        "accunet_tpu/ops/pallas/hanc_block.py:335", "eval_cli"),
@@ -2600,7 +3083,7 @@ def main() -> int:
         if name in ("selective_scan_fwd", "selective_scan_bwd"):
             kernels[-1]["unfused_ms"] = t["unfused_ms"]
             kernels[-1]["by_shape"] = {f"{c} float32": times[(name, c, "float32")]
-                                       for c, *_ in FUSED_STAGES}
+                                       for c, *_ in FUSED_STAGES + HYB_SCAN_SHAPES}
         if name.startswith("selective_scan_rh"):
             kernels[-1]["by_shape"] = {f"{c} float32": times[(name, c, "float32")]
                                        for c, *_ in RH_SHAPES[:-1]}

@@ -149,8 +149,12 @@ def test_segmamba_init_follows_jax_initialisers():
                                     dict(text_fusion="hslca"), dict(text_fusion="crossattn"),
                                     dict(final_refine="simple_mlp")])
 def test_segmamba_unported_axes_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_segmamba("Segmamba", 3, 1, **SIZE, **kwargs)
+    """The axes that raised NotImplementedError before the hybrid family was
+    ported now build; a value no JAX model has raises ValueError naming it."""
+    build_segmamba("Segmamba", 3, 1, **SIZE, **kwargs)
+    (axis, _), = kwargs.items()
+    with pytest.raises(ValueError, match="no_such"):
+        build_segmamba("Segmamba", 3, 1, **SIZE, **{axis: "no_such"})
 
 
 def test_segmamba_train_cli_cpu(tmp_path):
