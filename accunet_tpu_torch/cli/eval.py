@@ -4,10 +4,18 @@
         --test-dir /data/ISIC18/Test_Folder \
         [--torch-ckpt best_model-ACC_UNet.pth.tar] [--csv out.csv] [--device cuda]
 
-Any registry name evaluates the same way (`--model UNext`, `UNext_S`, the
-ported UNext_CMRF names, ...). Without --torch-ckpt the model gets seeded
-random weights. `--device cuda`
-(the default) raises when CUDA is unavailable; it never falls back to the CPU.
+Any segmentation model of the registry evaluates the same way (`--model
+UNext`, `KNUnet`, `UKAN`, the ported UNext_CMRF names, ...). A `Segmamba*`
+name is built with in_chans / out_chans, as the train CLI builds it (JAX's
+eval CLI builds every model with n_channels / n_classes, which a SegMamba
+builder refuses); a deep-supervision model is scored on its main output. A
+TEXT_MODELS name (cli/train.py) reads the prompt file of --test-dir, as the
+train CLI reads its folders', and gives the model each image's prompt
+embedding; without a prompt file it evaluates on the images alone. Without
+--torch-ckpt the model gets seeded random weights; a reference SegMamba
+file's 3-D kernels give their centre depth tap (port/torch_ckpt.py).
+`--device cuda` (the default) raises when CUDA is unavailable; it never
+falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -15,16 +23,6 @@ from __future__ import annotations
 import argparse
 import ast
 import logging
-
-
-def _load_reference_state(path: str) -> dict:
-    """A reference-format .pth.tar ({'state_dict': ...}) as a flat
-    state_dict, without DataParallel 'module.' prefixes."""
-    import torch
-
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    state = ckpt.get("state_dict", ckpt) if isinstance(ckpt, dict) else ckpt
-    return {k.removeprefix("module."): v for k, v in state.items()}
 
 
 def main(argv=None):
@@ -51,12 +49,15 @@ def main(argv=None):
 
     import torch
 
+    from accunet_tpu_torch.cli.train import TEXT_MODELS
     from accunet_tpu_torch.config import get_config
     from accunet_tpu_torch.data.dataset import SegmentationDataset, list_split_ids
     from accunet_tpu_torch.data.loader import BatchLoader
     from accunet_tpu_torch.data.transforms import ValGenerator
     from accunet_tpu_torch.eval.evaluate import evaluate_model
     from accunet_tpu_torch.models import build as build_model, init_parameters
+    from accunet_tpu_torch.port import load_reference_checkpoint
+    from accunet_tpu_torch.train.engine import main_output
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -76,23 +77,32 @@ def main(argv=None):
         ds, args.batch, ValGenerator((cfg.data.img_size, cfg.data.img_size)), pad_last=True,
     )
     sample, _ = ds[0]
+    n_ch = sample["image"].shape[-1]
     kwargs = ast.literal_eval(args.model_kwargs) if args.model_kwargs else {}
-    model = build_model(args.model, n_channels=sample["image"].shape[-1],
-                        n_classes=args.n_classes, **kwargs)
+    if args.model.lower().startswith("segmamba"):  # SegMamba builders, as in the train CLI
+        model = build_model(args.model, in_chans=n_ch, out_chans=args.n_classes, **kwargs)
+    else:
+        model = build_model(args.model, n_channels=n_ch, n_classes=args.n_classes, **kwargs)
     init_parameters(model, torch.Generator().manual_seed(0))
     if args.torch_ckpt:
-        missing, unexpected = model.load_state_dict(
-            _load_reference_state(args.torch_ckpt), strict=False
-        )
-        missing = [k for k in missing if not k.endswith("num_batches_tracked")]
-        if missing:
-            raise KeyError(f"checkpoint lacks {len(missing)} entries, e.g. {missing[:5]}")
-        if unexpected:  # e.g. the Lite reference's unused MLFC convs
-            logging.info("ignored %d checkpoint entries", len(unexpected))
+        load_reference_checkpoint(model, args.torch_ckpt)
     model = model.to(device).eval()
 
+    batches = loader
+    if args.model in TEXT_MODELS:
+        from accunet_tpu_torch.data.text_prompts import read_text
+
+        prompts = read_text(args.test_dir)
+        if prompts is not None:
+            from accunet_tpu_torch.nn.text import ClinicalTextEncoder
+
+            encoder = ClinicalTextEncoder()
+            logging.info("text prompts enabled (%d entries)", len(prompts))
+            batches = ({**b, "text_emb": encoder([prompts.get(n) or "" for n in b["names"]])}
+                       for b in loader)
+
     res = evaluate_model(
-        model, loader, device,
+        lambda *inputs: main_output(model(*inputs)), batches, device,
         result_file=args.result, csv_file=args.csv, dump_dir=args.dump_dir,
         model_name=args.model, task_name=args.task,
     )

@@ -7,12 +7,13 @@ accunet_tpu/cli/gradcam.py, the reference's test_model_gradcam.py).
         [--img-size 224] [--out-dir gradcam_out] [--limit N] [--device cuda]
 
 Loads a checkpoint that the port's train CLI wrote (`--ckpt`, the files that
-`--resume` reads) or a reference-format .pth.tar (`--torch-ckpt`), else
-keeps seeded random weights, runs the model in eval mode and writes, per
-test image, <stem>_cam.npz (cam, image, mask) and, when PIL imports, an
-overlay <stem>_cam.png, as the JAX CLI does. The default layer is the last
-top-level module with parameters in name order, JAX's rule (:87-91; "up9"
-for ACC-UNet). `--device cuda` (the default) raises when CUDA is
+`--resume` reads) or a reference-format .pth.tar (`--torch-ckpt`; a
+reference SegMamba file's 3-D kernels give their centre depth tap,
+port/torch_ckpt.py), else keeps seeded random weights, runs the model in
+eval mode and writes, per test image, <stem>_cam.npz (cam, image, mask)
+and, when PIL imports, an overlay <stem>_cam.png, as the JAX CLI does. The
+default layer is the last top-level module with parameters in name order,
+JAX's rule (:87-91; "up9" for ACC-UNet). `--device cuda` (the default) raises when CUDA is
 unavailable; it never falls back to the CPU. On the card the fused eval
 kernels run forward and their plain versions' VJPs backward.
 """
@@ -68,13 +69,13 @@ def main(argv=None):
     import numpy as np
     import torch
 
-    from accunet_tpu_torch.cli.eval import _load_reference_state
     from accunet_tpu_torch.config import get_config
     from accunet_tpu_torch.data.dataset import SegmentationDataset
     from accunet_tpu_torch.data.loader import BatchLoader
     from accunet_tpu_torch.data.transforms import ValGenerator
     from accunet_tpu_torch.eval.gradcam import seg_grad_cam
     from accunet_tpu_torch.models import build as build_model, init_parameters
+    from accunet_tpu_torch.port import load_reference_checkpoint, read_checkpoint
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -99,12 +100,9 @@ def main(argv=None):
         model = build_model(args.model, n_channels=n_ch, n_classes=args.n_classes, **kwargs)
     init_parameters(model, torch.Generator().manual_seed(0))
     if args.ckpt:
-        model.load_state_dict(_load_reference_state(args.ckpt), strict=True)
+        model.load_state_dict(read_checkpoint(args.ckpt), strict=True)
     elif args.torch_ckpt:
-        missing, _ = model.load_state_dict(_load_reference_state(args.torch_ckpt), strict=False)
-        missing = [k for k in missing if not k.endswith("num_batches_tracked")]
-        if missing:
-            raise KeyError(f"checkpoint lacks {len(missing)} entries, e.g. {missing[:5]}")
+        load_reference_checkpoint(model, args.torch_ckpt)
     model = model.to(device).eval()
     layer = args.layer or default_layer(model)
     logging.info("CAM layer: %s", layer)

@@ -59,17 +59,20 @@ def evaluate_model(
     task_name: str = "task",
 ) -> EvalResult:
     """forward(images (B,H,W,C) on `device`) -> probability/logit maps
-    (B,H,W,n_out). `apply_sigmoid` mirrors the eval scripts re-sigmoiding
-    raw-logit models."""
+    (B,H,W,n_out); a batch that carries the prompts' embeddings under
+    "text_emb" calls forward(images, text_emb). `apply_sigmoid` mirrors the
+    eval scripts re-sigmoiding raw-logit models."""
     per_image = []
     t_total = 0.0
     n = 0
     with torch.inference_mode():
         for batch in loader:
             imgs = torch.from_numpy(np.asarray(batch["image"], np.float32)).to(device)
+            inputs = (imgs,) if batch.get("text_emb") is None else (
+                imgs, torch.from_numpy(np.asarray(batch["text_emb"], np.float32)).to(device))
             _sync(device)
             t0 = time.perf_counter()
-            preds = forward(imgs)
+            preds = forward(*inputs)
             _sync(device)
             t_total += time.perf_counter() - t0
             preds = preds.float().cpu().numpy()

@@ -2,8 +2,8 @@
 (accunet_tpu/models/__init__.py): the ACC-UNet family, all 26 SegMamba
 names (the baseline, the hybrid ladder and the text-conditioned and
 Spatial-Mamba variants), UNeXt, the UNext_CMRF family (whose unported
-variants raise NotImplementedError when built), MedMamba and the
-SpatialMamba classifier."""
+variants raise NotImplementedError when built), MedMamba, the SpatialMamba
+classifier, KNUnet (KMUNet) and U-KAN."""
 
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ from accunet_tpu_torch.models.acc_unet import (
     ACC_UNet_W,
     ACCUNet,
 )
+from accunet_tpu_torch.models.knunet import KMUNet
 from accunet_tpu_torch.models.medmamba import VSSM, Backbone_SpatialMamba, SpatialMamba
 from accunet_tpu_torch.models.segmamba import VARIANTS as _SEGMAMBA_VARIANTS
 from accunet_tpu_torch.models.segmamba import SegMamba, build_segmamba
@@ -27,6 +28,7 @@ from accunet_tpu_torch.models.unext import UNext, UNext_S
 from accunet_tpu_torch.models.unext_cmrf import VARIANTS as _CMRF_VARIANTS
 from accunet_tpu_torch.models.unext_cmrf import build_unext_cmrf
 from accunet_tpu_torch.models.swin_unet import WindowAttention
+from accunet_tpu_torch.models.u_kan import UKAN
 from accunet_tpu_torch.nn.acc_blocks import MLFC
 from accunet_tpu_torch.nn.attention import TGDC, MDTAAttention, TorchMultiheadAttention
 from accunet_tpu_torch.nn.kan import FractionalJacobiNeuralBlock, KANLinear
@@ -52,6 +54,9 @@ registry: Dict[str, Callable] = {
     "UNeXt": UNext,  # the reference factory's spelling
     "UNext_S": UNext_S,
     **{name: functools.partial(build_unext_cmrf, name) for name in _CMRF_VARIANTS},
+    "KNUnet": KMUNet,
+    "UKAN": UKAN,
+    "U-KAN": UKAN,  # the reference factory's spelling
 }
 
 
@@ -143,5 +148,5 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 __all__ = ["ACCUNet", "ACC_UNet", "ACC_UNet_Lite", "ACC_UNet_W", "Backbone_SpatialMamba",
-           "SegMamba", "SpatialMamba", "UNext", "UNext_S", "VSSM", "build", "build_segmamba",
-           "build_unext_cmrf", "init_parameters", "registry"]
+           "KMUNet", "SegMamba", "SpatialMamba", "UKAN", "UNext", "UNext_S", "VSSM", "build",
+           "build_segmamba", "build_unext_cmrf", "init_parameters", "registry"]

@@ -12,8 +12,10 @@ with a fixed uniform grid of G = 5 intervals over (-1, 1) extended by K = 3
 knots on each side (Cox-de-Boor recursion). Parameter names are the JAX
 package's (`base_weight`, `spline_weight`, `spline_scaler`, the block's
 `alpha`, `beta`, `gamma`; `layers_0` is `layers.0`), so its tree loads with
-`state_dict_from_jax`. Not ported: the rational (`JacobiRKAN`, `PadeRKAN`)
-and SiLU base activations, which no ported model uses.
+`state_dict_from_jax`. `base_activation='silu'` (KNUnet's and U-KAN's
+KANLinears) takes silu(x) as the base path, with no parameter. Not ported:
+the rational bases (`'rkan'`: `JacobiRKAN`, `'pade'`: `PadeRKAN`), which
+only the UNext_CMRF rKAN variants use.
 """
 
 from __future__ import annotations
@@ -74,11 +76,17 @@ def b_splines(x: torch.Tensor, grid: torch.Tensor, spline_order: int) -> torch.T
 
 
 class KANLinear(nn.Module):
-    """x (batch, in) -> (batch, out): the FJNB base path plus the B-spline path."""
+    """x (batch, in) -> (batch, out): the base path (the FJNB block, or SiLU)
+    plus the B-spline path."""
 
     def __init__(self, in_features: int, out_features: int, grid_size: int = 5,
-                 spline_order: int = 3):
+                 spline_order: int = 3, base_activation: str = "fjnb"):
         super().__init__()
+        if base_activation in ("rkan", "pade"):
+            raise NotImplementedError(f"KANLinear base_activation={base_activation!r}: not "
+                                      "ported yet (ROADMAP Queue 1 item 7)")
+        if base_activation not in ("fjnb", "silu"):
+            raise ValueError(f"KANLinear base_activation={base_activation!r}")
         self.in_features, self.out_features = in_features, out_features
         self.grid_size, self.spline_order = grid_size, spline_order
         h = 2.0 / grid_size  # the grid spans (-1, 1)
@@ -89,7 +97,8 @@ class KANLinear(nn.Module):
         self.spline_weight = nn.Parameter(
             torch.empty(out_features, in_features, grid_size + spline_order))
         self.spline_scaler = nn.Parameter(torch.empty(out_features, in_features))
-        self.base_activation = FractionalJacobiNeuralBlock(3)
+        self.base_activation = FractionalJacobiNeuralBlock(3) if base_activation == "fjnb" \
+            else F.silu
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()

@@ -19,7 +19,9 @@ JAX folds the four directions into one scan call (a vmap); the fused kernel
 takes one A (D, N) and one B (B, N, L), so here each direction is one
 kernel launch forward and one backward (a launch over all four, with B and
 C grouped by direction, is later work: ROADMAP Queue 2). The flips and the
-column-major order are copies made before the launch.
+column-major order are copies made before the launch. SS2D computes in its
+input's type with the parameters cast at use (the scan itself in fp32, the
+norm in fp32), as KNUnet's `dtype` needs.
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ from torch import nn
 
 from accunet_tpu_torch.nn.acc_blocks import BatchNorm
 from accunet_tpu_torch.nn.ssm import ssm_init
-from accunet_tpu_torch.ops.conv import conv1x1, conv2d
+from accunet_tpu_torch.nn.unext_blocks import LayerNorm
+from accunet_tpu_torch.ops.conv import conv1x1, conv2d, linear
 from accunet_tpu_torch.ops.selective_scan import selective_scan
 
 K_DIRECTIONS = 4
@@ -53,7 +56,7 @@ class SS2D(nn.Module):
         self.dt_projs_bias = nn.Parameter(torch.empty(k, d_inner))
         self.A_logs = nn.Parameter(torch.empty(k, d_inner, d_state))
         self.Ds = nn.Parameter(torch.empty(k, d_inner))
-        self.out_norm = nn.LayerNorm(d_inner, eps=1e-5)
+        self.out_norm = LayerNorm(d_inner, eps=1e-5)
         self.out_proj = nn.Linear(d_inner, d_model, bias=False)
         self.reset_ssm_parameters()
 
@@ -67,7 +70,7 @@ class SS2D(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, h, w, _ = x.shape
         d, n, r, l = self.d_inner, self.d_state, self.dt_rank, h * w
-        xs, z = self.in_proj(x).split(d, dim=-1)
+        xs, z = linear(x, self.in_proj.weight).split(d, dim=-1)
         xs = F.silu(conv2d(xs, self.conv2d.weight, self.conv2d.bias, groups=d))
         x_hw = xs.permute(0, 3, 1, 2).reshape(b, d, l)  # row-major
         x_wh = xs.permute(0, 3, 2, 1).reshape(b, d, l)  # column-major
@@ -85,7 +88,7 @@ class SS2D(nn.Module):
 
         y = ys[0] + ys[2].flip(-1) + from_wh(ys[1]) + from_wh(ys[3].flip(-1))
         y = self.out_norm(y.transpose(1, 2).reshape(b, h, w, d))
-        return self.out_proj(y * F.silu(z))
+        return linear(y * F.silu(z), self.out_proj.weight)
 
 
 def channel_shuffle(x: torch.Tensor, groups: int) -> torch.Tensor:

@@ -63,7 +63,9 @@ def forward(model: nn.Module, batch):
     return model(batch["image"])
 
 
-def _main_output(preds):
+def main_output(preds):
+    """The output the metrics read: the model's output, the first of a
+    deep-supervision tuple, or the second of a pair whose first is a tuple."""
     if isinstance(preds, (tuple, list)):
         if len(preds) == 2 and isinstance(preds[0], (tuple, list)):
             return preds[1]
@@ -109,7 +111,7 @@ def make_train_fns(
         state.optimizer.step()
         state.step += 1
         with torch.no_grad():
-            main = _main_output(preds).detach()
+            main = main_output(preds).detach()
             stats = {
                 "loss": loss.detach(),
                 "dice": dice_show(main, batch["mask"]),
@@ -122,7 +124,7 @@ def make_train_fns(
         state.model.eval()
         with torch.no_grad():
             preds = forward(state.model, batch)
-            main = _main_output(preds)
+            main = main_output(preds)
             return {
                 "loss": loss_fn(preds, batch["mask"]),
                 "dice": dice_show(main, batch["mask"]),
@@ -132,7 +134,7 @@ def make_train_fns(
     def predict_step(state: TrainState, batch):
         state.model.eval()
         with torch.no_grad():
-            return _main_output(forward(state.model, batch))
+            return main_output(forward(state.model, batch))
 
     return TrainStepFns(train_step, eval_step, predict_step, state)
 

@@ -156,7 +156,31 @@ From the root of a checkout, with one CUDA device:
  37. compares those three models (the text ones with text) and MedMamba
      at full width, b1 64x64, GPU vs CPU, and the GPU forward's scan
      launches (8 fused, 8 rh, 32 fused, 40 fused). Phases 34-37 print their
-     seconds.
+     seconds;
+ 38. holds the fused selective scan (no z, D, bias, softplus) at KNUnet's
+     three decoder shapes (b8 256x256: D 512 / 256 / 128 over L 256 / 1024 /
+     4096, N 16) and dwconv2d_wgrad with db at U-KAN's three DWBnRelu maps
+     (b8 16x16x320, 8x8x512, 32x32x256; fp32 and bf16) against their plain
+     versions, the backwards bitwise on a second call;
+ 39. runs the train entry point with --model KNUnet and with --model UKAN at
+     full width, 256x256 (their preset), batch 8, as in phase 7, and checks
+     the launches: KNUnet 12 fused forwards and backwards a step and 12
+     forwards a validation forward (the last block of up1-up3, four
+     directions each), U-KAN 12 dwconv2d_wgrad a step and none a validation
+     forward;
+ 40. runs both through the eval entry point on cuda (KNUnet 12 fused
+     forwards a forward, U-KAN none) and compares each, b1 64x64, GPU vs
+     CPU with its launches;
+ 41. writes Segmamba (full width, seeded) as a reference-format .pth.tar
+     whose kernels are 5-D (depth 1, or depth 3 with random off-centre
+     taps) under 'module.' prefixes, evaluates it through the eval entry
+     point with --torch-ckpt on cuda (4 images of 64x64, b2), and holds the
+     dumped outputs against the source model on the CPU (16 fused forwards
+     a forward);
+ 42. times KNUnet and U-KAN b8 256x256 fp32 inference and train step with
+     peak memory and launches, the fused kernels at phase 38's shapes and
+     the wgrad at U-KAN's maps beside its plain version, cuDNN's weight-only
+     backward and the bounds. Phases 38-42 print their seconds.
 Phases print their seconds. It prints a JSON line of the kernels (the
 launches of every path, the new ones too), then as its last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -894,7 +918,7 @@ TAPS = ("cnv12", "cnv22", "rspth1", "rspth2", "cnv72", "cnv82", "cnv92")
 
 def forward_with_taps(model, x, taps=TAPS):
     feats = {}
-    hooks = [getattr(model, n).register_forward_hook(
+    hooks = [model.get_submodule(n).register_forward_hook(
         lambda mod, inp, out, n=n: feats.__setitem__(n, out.float().cpu())) for n in taps]
     try:
         out = model(x).cpu()
@@ -2374,9 +2398,9 @@ def hyb_scan_ops(g, b, l, d, n):
     return (*ops[:6], None, ops[7]), gy
 
 
-def check_hybrid_scan():
-    """Phase 34: selective_scan_fwd (with its chunk states) and
-    selective_scan_bwd against their plain versions at HYB_SCAN_SHAPES with
+def check_hybrid_scan(shapes=HYB_SCAN_SHAPES):
+    """Phases 34 and 38: selective_scan_fwd (with its chunk states) and
+    selective_scan_bwd against their plain versions at `shapes` with
     the hybrid family's flags (no z, D, bias, softplus; no cotangent on the
     last state, which the models do not use): out, the last state and the
     seven gradients rel <= FP32_TOL, the backward bitwise on a second call.
@@ -2385,7 +2409,7 @@ def check_hybrid_scan():
 
     g = torch.Generator("cuda").manual_seed(34)
     worst, bad = {"selective_scan_fwd": 0.0, "selective_scan_bwd": 0.0}, []
-    for name, b, l, d, n in HYB_SCAN_SHAPES:
+    for name, b, l, d, n in shapes:
         ops, gy = hyb_scan_ops(g, b, l, d, n)
         out, last, states = SS.selective_scan_fwd(*ops, True, save_states=True)
         grads = SS.selective_scan_bwd(*ops, True, states, gy)
@@ -2419,8 +2443,8 @@ def check_hybrid_scan():
     return worst
 
 
-def time_hybrid_scan():
-    """Phase 34b: at each of HYB_SCAN_SHAPES, selective_scan_fwd (no chunk
+def time_hybrid_scan(shapes=HYB_SCAN_SHAPES):
+    """Phases 34b and 42: at each of `shapes`, selective_scan_fwd (no chunk
     states, as inference runs it) and selective_scan_bwd (from the chunk
     states) against their plain versions and the least time the card could
     take (bound_ms: bytes, or 7 / 20 fp32 operations a (t, n) at 67
@@ -2429,7 +2453,7 @@ def time_hybrid_scan():
 
     g = torch.Generator("cuda").manual_seed(35)
     times = {}
-    for name, b, l, d, n in HYB_SCAN_SHAPES:
+    for name, b, l, d, n in shapes:
         ops, gy = hyb_scan_ops(g, b, l, d, n)
         pairs = b * l * d * n
         with torch.inference_mode():
@@ -2718,6 +2742,215 @@ def compare_hybrid_cpu():
     return out
 
 
+# ----------------------------------------- KNUnet, U-KAN and SegMamba .pth files
+# KNUnet (KMUNet: hidden 64/128/256/512, depths 1/2/6/2, d_state 16) and U-KAN
+# (embed 256/320/512) at full width; neither is in the 224 preset, so both run
+# at 256x256 (config.get_config), batch 8
+KAN_HW = 256
+# the fused selective scan under KNUnet's decoder (no z; D, bias, softplus):
+# the last VSSBlock of up1 / up2 / up3 runs one SS2D at d_inner D = hidden[i]
+# over L = (256 / 16, 8, 4)^2 steps, one launch per direction: (name, B, L, D, N)
+KNUNET_SCAN_SHAPES = (("knunet.up1", B, (KAN_HW // 16) ** 2, 512, N_STATES),
+                      ("knunet.up2", B, (KAN_HW // 8) ** 2, 256, N_STATES),
+                      ("knunet.up3", B, (KAN_HW // 4) ** 2, 128, N_STATES))
+KNUNET_PER_FORWARD = 12  # 3 SS2Ds (up1-up3's last blocks) x 4 directions
+# U-KAN's DWBnRelu depthwise convs (3x3 with bias; their weight and bias
+# gradient is dwconv2d_wgrad): block1_0 and dblock1_0 at 16x16x320, block2_0
+# at 8x8x512, dblock2_0 at 32x32x256, three each: (name, side, C)
+UKAN_DW_SHAPES = (("block1_0", KAN_HW // 16, 320), ("block2_0", KAN_HW // 32, 512),
+                  ("dblock2_0", KAN_HW // 8, 256))
+UKAN_WGRAD_PER_STEP = 12  # 4 KANBlocks x 3 DWBnRelus
+KAN_CMP_HW = 64
+KAN_MODELS = {
+    "KNUnet": (("decoder.up1", "decoder.up2", "decoder.up3", "decoder.final_up"),
+               {"selective_scan_fwd": KNUNET_PER_FORWARD}),
+    "UKAN": (("encoder3", "norm3", "norm4", "dnorm3", "dnorm4"), {})}
+# phase 41: Segmamba's checkpoint through the eval CLI, 4 images of 64x64 in 2
+# forwards (the source model's CPU forward sets the phase's time)
+CKPT_EVAL_N, CKPT_EVAL_B, CKPT_EVAL_HW = 4, 2, 64
+
+
+def ukan_wgrad_cases(dev):
+    """Phases 38 and 42: dwconv2d_wgrad (with db) at U-KAN b8 256x256's
+    three DWBnRelu maps (x and g ~ N(0, 1))."""
+    g = torch.Generator(device=dev).manual_seed(38)
+
+    def cases(dt):
+        return [wgrad_case(f"ukan.{name}",
+                           *(torch.randn(B, hw, hw, c, generator=g, device=dev).to(dt)
+                             for _ in range(2)))
+                for name, hw, c in UKAN_DW_SHAPES]
+
+    return cases
+
+
+def kan_train_launches(name):
+    """Per KNUnet train step: 12 fused forwards and 12 fused backwards (4
+    directions of the three SS2Ds that run), per validation forward 12 fused
+    forwards; per U-KAN train step 12 dwconv2d_wgrad (one per DWBnRelu), per
+    validation forward none; nothing else of the port's kernels."""
+    def want(steps, val_batches):
+        zero = dict.fromkeys(KERNELS, 0)
+        if name == "KNUnet":
+            return {"train_steps": {**zero, "selective_scan_fwd": KNUNET_PER_FORWARD * steps,
+                                    "selective_scan_bwd": KNUNET_PER_FORWARD * steps},
+                    "validation": {**zero, "selective_scan_fwd": KNUNET_PER_FORWARD * val_batches}}
+        return {"train_steps": {**zero, "dwconv2d_wgrad": UKAN_WGRAD_PER_STEP * steps},
+                "validation": zero}
+    return want
+
+
+def kan_model(name):
+    """KNUnet or U-KAN at full width (3 channels in, 1 class: KNUnet's
+    logits, U-KAN's sigmoid probabilities), seeded with the JAX package's
+    initialisers, U-KAN's BNs moved off their init values; eval mode, CPU."""
+    from accunet_tpu_torch.models import build, init_parameters
+
+    model = init_parameters(build(name, n_channels=3, n_classes=1),
+                            torch.Generator().manual_seed(0))
+    return seeded_bns(model, 40).eval()
+
+
+def launch_counts():
+    from accunet_tpu_torch.ops.kernels import dwconv2d as DW
+    from accunet_tpu_torch.ops.kernels import selective_scan as SS
+
+    return {"dwconv2d_wgrad": DW.dwconv2d_wgrad.launches, **scan_counts()}
+
+
+def compare_kan_cpu(name):
+    """Phase 40: `name` at full width, b1 64x64, GPU (kernels) vs CPU (plain
+    versions) as compare_on_cpu holds it, and the GPU forward's launches
+    (KNUnet 12 fused forwards, U-KAN none)."""
+    taps, want = KAN_MODELS[name]
+    model = kan_model(name)
+    c0 = launch_counts()
+    err = compare_on_cpu(model, name, KAN_CMP_HW, taps, 40)
+    got = {k: v - c0[k] for k, v in launch_counts().items() if v != c0[k]}
+    if got != want:
+        raise SmokeError(f"{name}: the GPU forward launched {got}, expected {want}")
+    log(f"  {name} GPU forward launches {got}")
+    return err
+
+
+def reference_ckpt(model, path, seed):
+    """A reference-format .pth.tar of `model` as the reference's 3-D SegMamba
+    writes it: each 4-D kernel (conv O, I, kh, kw or transposed conv I, O,
+    kh, kw) as a 5-D one, every third of depth 1 and the others of depth 3
+    with random off-centre taps, under DataParallel's 'module.' prefixes.
+    Returns the number of 5-D kernels."""
+    g = torch.Generator().manual_seed(seed)
+    state, n3d = {}, 0
+    for key, v in model.state_dict().items():
+        if v.ndim == 4:
+            v = v[:, :, None]
+            if n3d % 3:
+                off = torch.randn(v.shape, generator=g)
+                v = torch.cat([off, v, -off], dim=2)
+            n3d += 1
+        state[f"module.{key}"] = v
+    torch.save({"epoch": 1, "state_dict": state}, path)
+    return n3d
+
+
+def run_segmamba_ckpt_eval(counters):
+    """Phase 41: Segmamba at full width (1 channel in, 1 logit out), seeded,
+    written as a reference-format .pth.tar (reference_ckpt), evaluated
+    through the eval entry point with --torch-ckpt on cuda (CKPT_EVAL_N
+    images of CKPT_EVAL_HW x CKPT_EVAL_HW in batches of CKPT_EVAL_B): the
+    dumped outputs against the source model's on the CPU (rel <=
+    MODEL_TOL), 16 fused forwards a forward and nothing else."""
+    from accunet_tpu_torch.cli import eval as cli
+    from accunet_tpu_torch.models import build, init_parameters
+
+    # one channel in: the dataset reads write_folder's (4, H, W) arrays so
+    src = init_parameters(build("Segmamba", in_chans=1, out_chans=1),
+                          torch.Generator().manual_seed(41)).eval()
+    with tempfile.TemporaryDirectory() as tmp:
+        data, path = os.path.join(tmp, "data"), os.path.join(tmp, "best_model-Segmamba.pth.tar")
+        write_folder(data, CKPT_EVAL_N, CKPT_EVAL_HW)
+        n3d = reference_ckpt(src, path, 41)
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        res = cli.main(["--model", "Segmamba", "--test-dir", data,
+                        "--img-size", str(CKPT_EVAL_HW), "--batch", str(CKPT_EVAL_B),
+                        "--device", "cuda", "--torch-ckpt", path,
+                        "--csv", os.path.join(tmp, "m.csv"), "--result", os.path.join(tmp, "r"),
+                        "--dump-dir", os.path.join(tmp, "dump")])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        dumps = [np.load(os.path.join(tmp, "dump", n)) for n in sorted(os.listdir(
+            os.path.join(tmp, "dump")))]
+    if res.n_images != CKPT_EVAL_N or len(dumps) != CKPT_EVAL_N:
+        raise SmokeError(f"Segmamba --torch-ckpt eval: {res.n_images} images, {len(dumps)} dumps")
+    got = torch.from_numpy(np.stack([d["output"] for d in dumps]))
+    with torch.inference_mode():
+        want = src(torch.from_numpy(np.stack([d["input"] for d in dumps])))
+    abs_err, rel = rel_err(got, want)
+    forwards = -(-CKPT_EVAL_N // CKPT_EVAL_B)
+    want_launches = {k: SCANS_PER_FORWARD * forwards if k == "selective_scan_fwd" else 0
+                     for k in launches}
+    log(f"  Segmamba --torch-ckpt ({n3d} 5-D kernels) eval on cuda: {CKPT_EVAL_N} images in "
+        f"{seconds:.2f} s, dice {res.dice:.4f}; output vs the source model on the CPU: "
+        f"max_abs_err {abs_err:.3e}, rel {rel:.3e} (tol {MODEL_TOL:g}); launches {launches}")
+    if rel > MODEL_TOL:
+        raise SmokeError("the checkpoint's model on the GPU disagrees with its source on the CPU")
+    if launches != want_launches:
+        raise SmokeError(f"the eval path launched {launches}, expected {want_launches}")
+    return launches, rel
+
+
+def time_kan(name):
+    """Phase 42: `name` at full width, b8 256x256, fp32 (TF32 off):
+    inference and the train step (weighted Dice+BCE, backward, Adam), ms,
+    img/s, peak memory and the launches a forward and a step; CUDA events, 5
+    iterations after 2 warm-up (and the counted call)."""
+    from accunet_tpu_torch.train.engine import make_train_fns
+
+    model = kan_model(name)
+    g = torch.Generator("cuda").manual_seed(42)
+    x = torch.rand(B, KAN_HW, KAN_HW, 3, generator=g, device="cuda")
+    m = copy.deepcopy(model).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        c0 = launch_counts()
+        y = m(x)
+        per_fwd = {k: v - c0[k] for k, v in launch_counts().items() if v != c0[k]}
+        ms = time_ms(lambda: m(x), iters=5, warmup=2)
+    if y.shape != (B, KAN_HW, KAN_HW, 1) or not bool(y.isfinite().all()):
+        raise SmokeError(f"{name}: output {tuple(y.shape)}, finite {bool(y.isfinite().all())}")
+    out = {"inference_fp32": {"batch": B, "ms_per_batch": ms, "img_per_s": B * 1e3 / ms,
+                              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                              "launches_per_forward": per_fwd}}
+    del m, y
+    gc_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    fns = make_train_fns(copy.deepcopy(model).cuda())
+    batch = {"image": x, "mask": (torch.rand(B, KAN_HW, KAN_HW, 1, generator=g,
+                                             device="cuda") > 0.5).float()}
+    c0 = launch_counts()
+    fns.train_step(fns.state, batch)
+    torch.cuda.synchronize()
+    per_step = {k: v - c0[k] for k, v in launch_counts().items() if v != c0[k]}
+    ms = time_ms(lambda: fns.train_step(fns.state, batch), iters=5, warmup=2)
+    _, stats = fns.train_step(fns.state, batch)
+    if not bool(torch.isfinite(stats["loss"])):
+        raise SmokeError(f"non-finite loss in the timed {name} train step")
+    out["train_step_fp32"] = {"batch": B, "ms_per_step": ms, "img_per_s": B * 1e3 / ms,
+                              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                              "launches_per_step": per_step}
+    del fns, batch
+    gc_cuda()
+    i, s = out["inference_fp32"], out["train_step_fp32"]
+    log(f"  {name} b{B} {KAN_HW}x{KAN_HW} fp32: inference {i['ms_per_batch']:.3f} ms/batch, "
+        f"{i['img_per_s']:.1f} img/s, peak {i['peak_mem_gib']:.2f} GiB, launches a forward "
+        f"{per_fwd}; train step {s['ms_per_step']:.3f} ms/step, {s['img_per_s']:.1f} img/s, "
+        f"peak {s['peak_mem_gib']:.2f} GiB, launches a step {per_step}")
+    return out
+
+
 class Phases:
     """Logs each phase's title and, when the next begins (or `end()`), the
     seconds it took."""
@@ -2994,12 +3227,52 @@ def main() -> int:
     log("  " + json.dumps({"card": card, "hybrid": hyb_rates, "hybrid_train_batch": hyb_batch,
                            "hybrid_checks": hyb_checks}))
 
+    phase(f"[38] the fused selective scan at KNUnet's decoder shapes (b{B} {KAN_HW}x{KAN_HW}) "
+          "and dwconv2d_wgrad at U-KAN's DWBnRelu maps vs their plain versions")
+    t_kan = time.perf_counter()
+    for kname, err in check_hybrid_scan(KNUNET_SCAN_SHAPES).items():
+        worst[kname] = max(worst[kname], err)
+    uk_cases = ukan_wgrad_cases(dev)
+    for kname, err in check_kernels(uk_cases, worst_bf16).items():
+        worst[kname] = max(worst[kname], err)
+
+    phase(f"[39] KNUnet and U-KAN through accunet_tpu_torch.cli.train on cuda ({KAN_HW}x{KAN_HW}, "
+          f"b{B}), then --resume auto")
+    for name in KAN_MODELS:
+        kan_launches = run_train_cli(counters, name, kan_train_launches(name), hw=KAN_HW)
+        launches[f"{name.lower()}_train_cli_steps"] = kan_launches["train_steps"]
+        launches[f"{name.lower()}_train_cli_validation"] = kan_launches["validation"]
+
+    phase(f"[40] KNUnet and U-KAN through accunet_tpu_torch.cli.eval on cuda; GPU vs CPU (b1 "
+          f"{KAN_CMP_HW}x{KAN_CMP_HW})")
+    kan_checks = {}
+    for name, (_, per_fwd) in KAN_MODELS.items():
+        launches[f"{name.lower()}_eval_cli"] = run_eval_cli(counters, name, hw=KAN_HW,
+                                                            per_forward=per_fwd)
+        kan_checks[f"{name}_gpu_vs_cpu_rel"] = compare_kan_cpu(name)
+
+    phase("[41] Segmamba through accunet_tpu_torch.cli.eval --torch-ckpt on cuda (a reference-"
+          "format file with 5-D kernels)")
+    launches["segmamba_ckpt_eval_cli"], kan_checks["segmamba_ckpt_rel"] = \
+        run_segmamba_ckpt_eval(counters)
+
+    phase(f"[42] KNUnet and U-KAN timing (b{B} {KAN_HW}x{KAN_HW} fp32); the fused scan and "
+          "dwconv2d_wgrad at their shapes")
+    kan_rates = {name: time_kan(name) for name in KAN_MODELS}
+    times.update({(k, c, "float32"): v
+                  for (k, c), v in time_hybrid_scan(KNUNET_SCAN_SHAPES).items()})
+    times.update(time_kernels(uk_cases))
+    phase.end()
+    log(f"  phases 38-42 took {time.perf_counter() - t_kan:.1f} s")
+    log("  " + json.dumps({"card": card, "kan": kan_rates, "kan_checks": kan_checks}))
+
     # the shapes whose times the kernels line lists per kernel
     by_shape = {"hanc_block": ("cnv12", "cnv22", "cnv81", "cnv91"),
                 "respath_level": ("rspth1.level0", "rspth1.level1", "rspth2.level1"),
                 "hanc_mix": ("cnv11", "cnv31", "cnv61", "cnv72"),
                 "dwconv2d_wgrad": ("cnv12", "cnv52", "cnv61", "cnv72")
-                + tuple(f"unext.{name}" for name, *_ in UNEXT_DW_SHAPES)}
+                + tuple(f"unext.{name}" for name, *_ in UNEXT_DW_SHAPES)
+                + tuple(f"ukan.{name}" for name, *_ in UKAN_DW_SHAPES)}
     timed_case = {"hanc_block": "cnv91", "respath_level": "rspth1.level1", "hanc_mix": "cnv72",
                   "dwconv2d_wgrad": "cnv72", "linear_scan": "stage0",
                   "linear_scan_staged": "stage0", "expand_dw": "cnv72.w_b2_512",
@@ -3024,7 +3297,10 @@ def main() -> int:
     # the text rung's fused scans without z, the flagship's rh scans) are in
     # `launches_by_path`, and the fused kernels' `by_shape` adds phase 34's
     # shapes (MambaVisionMixer's "mvm.stage0-3", "vss.stage0",
-    # "medmamba.stage0")
+    # "medmamba.stage0"). Phases 39-41's paths (KNUnet's fused scans, U-KAN's
+    # wgrad, the Segmamba checkpoint's eval) are in `launches_by_path` too;
+    # the fused kernels' `by_shape` adds KNUnet's "knunet.up1-3", the wgrad's
+    # U-KAN's "ukan.*" maps
     meta = {
         "hanc_block": ("accunet_tpu_torch/csrc/hanc_block.cu",
                        "accunet_tpu/ops/pallas/hanc_block.py:335", "eval_cli"),
@@ -3083,7 +3359,8 @@ def main() -> int:
         if name in ("selective_scan_fwd", "selective_scan_bwd"):
             kernels[-1]["unfused_ms"] = t["unfused_ms"]
             kernels[-1]["by_shape"] = {f"{c} float32": times[(name, c, "float32")]
-                                       for c, *_ in FUSED_STAGES + HYB_SCAN_SHAPES}
+                                       for c, *_ in FUSED_STAGES + HYB_SCAN_SHAPES
+                                       + KNUNET_SCAN_SHAPES}
         if name.startswith("selective_scan_rh"):
             kernels[-1]["by_shape"] = {f"{c} float32": times[(name, c, "float32")]
                                        for c, *_ in RH_SHAPES[:-1]}

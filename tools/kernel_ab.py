@@ -5,12 +5,14 @@ the port.
 
     python tools/kernel_ab.py [--tag NAME] [--json PATH] [--iters N] [--only KERNEL ...]
                               [--sweep] [--graphs] [--models] [--segmamba] [--contig] [--rh]
+                              [--knunet]
 
 On one CUDA card, at chip_smoke.py's shapes (ACC_UNet, n_filts=32, b8
 224x224; expand_dw also at ACC_UNet_W b2 512x512), in fp32 (TF32 off) and
 bf16:
-  * dwconv2d_wgrad at cnv12, cnv52, cnv61 and cnv72, and at UNext b8
-    224x224's ShiftedBlock maps (14x14x160, 7x7x256, 28x28x128): the kernel for dw alone
+  * dwconv2d_wgrad at cnv12, cnv52, cnv61 and cnv72, at UNext b8
+    224x224's ShiftedBlock maps (14x14x160, 7x7x256, 28x28x128) and at U-KAN
+    b8 256x256's DWBnRelu maps (16x16x320, 8x8x512, 32x32x256): the kernel for dw alone
     and, where the tree's wrapper takes `bias_grad`, for dw and db; cuDNN's
     weight-only `aten.convolution_backward` on the same inputs; the error of
     dw against the plain version (max abs error / max |plain|);
@@ -28,6 +30,11 @@ bf16:
     forward (the fused kernel, or in an older tree the glue around the
     linear_scan kernel) and its forward + backward through autograd, with
     the peak memory the forward + backward adds;
+  * with --knunet: selective_scan_fwd (no chunk states) and
+    selective_scan_bwd (from the forward's chunk states) at KNUnet b8
+    256x256's three SS2D shapes (D 512 / 256 / 128, L 256 / 1024 / 4096, N
+    16, no z, D, bias and softplus on, contiguous operands as SS2D hands
+    them), each beside its bytes bound;
   * with --sweep (this tree only): dwconv2d_wgrad at each of its shapes
     under other splits (channel block, CTAs per block: `wgrad_plan`'s
     overrides), hanc_block at each of its shapes in every tile that holds
@@ -84,7 +91,13 @@ KERNELS = ("dwconv2d_wgrad", "hanc_block", "respath_level", "expand_dw", "select
 # name, map side, C
 WGRAD = [("cnv12", HW, 3 * NF), ("cnv52", HW // 16, 48 * NF), ("cnv61", HW // 8, 48 * NF),
          ("cnv72", HW // 4, 136 * NF), ("unext.block1_0", HW // 16, 160),
-         ("unext.block2_0", HW // 32, 256), ("unext.dblock2_0", HW // 8, 128)]
+         ("unext.block2_0", HW // 32, 256), ("unext.dblock2_0", HW // 8, 128),
+         # U-KAN b8 256x256's DWBnRelu maps (its preset is 256x256)
+         ("ukan.block1_0", 256 // 16, 320), ("ukan.block2_0", 256 // 32, 512),
+         ("ukan.dblock2_0", 256 // 8, 256)]
+# KNUnet b8 256x256's SS2D scans (the last block of up1-up3): name, L, d_inner
+KNUNET_SCAN = [("knunet.up1", 16 ** 2, 512), ("knunet.up2", 32 ** 2, 256),
+               ("knunet.up3", 64 ** 2, 128)]
 # name, map side, cin, E, cout, chained
 BLOCKS = [("cnv12", HW, NF, 3 * NF, NF, False), ("cnv22", HW // 2, 2 * NF, 6 * NF, 2 * NF, True),
           ("cnv81", HW // 2, 4 * NF, 12 * NF, 2 * NF, False),
@@ -594,6 +607,38 @@ def contig_rows(emit):
           "g_not_contiguous": sum(not g_ for _, _, g_ in seen), "maps": seen})
 
 
+def knunet_rows(iters: int, emit):
+    """The fused kernels at KNUNET_SCAN (CUDA-graph replays with --graphs),
+    fp32, beside the bytes bound: each operand read and each result written
+    once (the backward also reads the chunk states and the cotangent)."""
+    from accunet_tpu_torch.ops.kernels import selective_scan as SS
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def rn(*shape, s=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * s
+
+    n = 16
+    for name, l, d in KNUNET_SCAN:
+        a = -torch.arange(1, n + 1, device="cuda", dtype=torch.float32).expand(d, n).contiguous()
+        ops = (F.silu(rn(B, d, l)), rn(B, d, l, s=0.5), a, rn(B, n, l), rn(B, n, l),
+               1 + rn(d, s=0.1), None, rn(d, s=0.1))
+        gy = rn(B, d, l)
+        with torch.inference_mode():
+            out, last, states = SS.selective_scan_fwd(*ops, True, save_states=True)
+            grads = SS.selective_scan_bwd(*ops, True, states, gy)
+            row = {"kernel": "selective_scan", "shape": f"{name} B{B} L{l} D{d} N{n}",
+                   "dtype": "float32",
+                   "fwd_ms": time_ms(lambda: SS.selective_scan_fwd(*ops, True), iters),
+                   "bwd_ms": time_ms(lambda: SS.selective_scan_bwd(*ops, True, states, gy),
+                                     iters),
+                   "fwd_bound_ms": nbytes(*ops, out, last) / HBM_BYTES_PER_S * 1e3,
+                   "bwd_bound_ms": nbytes(*ops, states, gy, *grads) / HBM_BYTES_PER_S * 1e3}
+        emit(row)
+        del ops, gy, out, last, states, grads
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tag", default="", help="a name for this tree, copied into every row")
@@ -607,6 +652,7 @@ def main(argv=None) -> int:
     ap.add_argument("--segmamba", action="store_true")
     ap.add_argument("--contig", action="store_true")
     ap.add_argument("--rh", action="store_true")
+    ap.add_argument("--knunet", action="store_true")
     args = ap.parse_args(argv)
     only = args.only or (("selective_scan_rh",) if args.rh else KERNELS)
     if not torch.cuda.is_available():
@@ -634,6 +680,8 @@ def main(argv=None) -> int:
     kernel_rows(args.iters, emit, only)
     if "selective_scan_rh" in only:
         rh_rows(args.iters, emit)
+    if args.knunet:
+        knunet_rows(args.iters, emit)
     if args.sweep:
         sweep_rows(args.iters, emit, only)
     GRAPHS = False
