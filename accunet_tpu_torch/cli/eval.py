@@ -5,7 +5,9 @@
         [--torch-ckpt best_model-ACC_UNet.pth.tar] [--csv out.csv] [--device cuda]
 
 Any segmentation model of the registry evaluates the same way (`--model
-UNext`, `KNUnet`, `UKAN`, the ported UNext_CMRF names, ...). A `Segmamba*`
+UNext`, `KNUnet`, `UKAN`, the ported UNext_CMRF names, `UNet_base`, `Unetpp`,
+`MultiResUnet`, `UCTransNet` with --img-size 224, the TransUNet names, built
+at the image size, ...). A `Segmamba*`
 name is built with in_chans / out_chans, as the train CLI builds it (JAX's
 eval CLI builds every model with n_channels / n_classes, which a SegMamba
 builder refuses); a deep-supervision model is scored on its main output. A
@@ -82,7 +84,8 @@ def main(argv=None):
     if args.model.lower().startswith("segmamba"):  # SegMamba builders, as in the train CLI
         model = build_model(args.model, in_chans=n_ch, out_chans=args.n_classes, **kwargs)
     else:
-        model = build_model(args.model, n_channels=n_ch, n_classes=args.n_classes, **kwargs)
+        model = build_model(args.model, cfg.data.img_size, n_channels=n_ch,
+                            n_classes=args.n_classes, **kwargs)
     init_parameters(model, torch.Generator().manual_seed(0))
     if args.torch_ckpt:
         load_reference_checkpoint(model, args.torch_ckpt)

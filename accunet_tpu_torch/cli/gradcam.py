@@ -97,7 +97,8 @@ def main(argv=None):
     if args.model.lower().startswith("segmamba"):  # SegMamba builders, as in JAX
         model = build_model(args.model, in_chans=n_ch, out_chans=args.n_classes, **kwargs)
     else:
-        model = build_model(args.model, n_channels=n_ch, n_classes=args.n_classes, **kwargs)
+        model = build_model(args.model, cfg.data.img_size, n_channels=n_ch,
+                            n_classes=args.n_classes, **kwargs)
     init_parameters(model, torch.Generator().manual_seed(0))
     if args.ckpt:
         model.load_state_dict(read_checkpoint(args.ckpt), strict=True)

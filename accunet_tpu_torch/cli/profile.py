@@ -163,8 +163,8 @@ def main(argv=None):
             print(f"{args.model} takes no compute dtype and runs in float32, as in JAX")
             args.dtype, dtype = "float32", torch.float32
     else:
-        model = build_model(args.model, n_channels=args.channels, n_classes=1, dtype=dtype,
-                            **kwargs)
+        model = build_model(args.model, args.img, n_channels=args.channels, n_classes=1,
+                            dtype=dtype, **kwargs)
     init_parameters(model, torch.Generator().manual_seed(0))
     model = model.to(device).eval()
     gen = torch.Generator(device).manual_seed(1)

@@ -10,7 +10,13 @@ out_chans, as the JAX CLI builds SegMamba models; binary Dice+BCE at 224 by
 the config). `--model UNext` (UNeXt, BASELINE config 3; also UNext_S and the
 ported UNext_CMRF names) trains with weighted Dice+BCE, at 224 for UNext by
 the config; each train step runs the dwconv2d_wgrad kernel once per
-shifted-MLP block. `--synthetic` trains on a generated random npy folder instead
+shifted-MLP block. The UNet baselines (`UNet_base`, `Unetpp`, `MultiResUnet`
+and its 'MultiResUnet1_<nfilt>_<alpha>' names, `UCTransNet`, the four TransUNet
+names) train with weighted Dice+BCE and run no hand-written kernel; a
+TransUNet name is built at the image size, whose grid sizes its position
+embeddings, and UCTransNet keeps its img_size 224, as JAX's CLI builds it
+(train it with --img-size 224: at its 256 preset it fails as JAX's does).
+`--synthetic` trains on a generated random npy folder instead
 of dataset directories. Seeding: numpy, the loaders and the model's initialisation (a
 torch.Generator) all take cfg.train.seed. `--device cuda` (the default)
 raises when CUDA is unavailable; it never falls back to the CPU.
@@ -215,8 +221,8 @@ def main(argv=None):
                          "JAX", args.model)
         model = build_model(args.model, in_chans=n_ch, out_chans=n_cls, **cfg.model.kwargs)
     else:
-        model = build_model(args.model, n_channels=n_ch, n_classes=n_cls, dtype=compute_dtype,
-                            **cfg.model.kwargs)
+        model = build_model(args.model, cfg.data.img_size, n_channels=n_ch, n_classes=n_cls,
+                            dtype=compute_dtype, **cfg.model.kwargs)
     init_parameters(model, torch.Generator().manual_seed(cfg.train.seed))
     model = model.to(device)
 

@@ -3,12 +3,16 @@
 names (the baseline, the hybrid ladder and the text-conditioned and
 Spatial-Mamba variants), UNeXt, the UNext_CMRF family (whose unported
 variants raise NotImplementedError when built), MedMamba, the SpatialMamba
-classifier, KNUnet (KMUNet) and U-KAN."""
+classifier, KNUnet (KMUNet), U-KAN, and the ACC-UNet paper's UNet baselines:
+UNet_base, Unetpp, MultiResUnet (and the reference's
+'MultiResUnet1_<nfilt>_<alpha>' names), UCTransNet and the four TransUNet
+names."""
 
 from __future__ import annotations
 
 import functools
 import math
+import re
 from typing import Callable, Dict
 
 import torch
@@ -22,13 +26,18 @@ from accunet_tpu_torch.models.acc_unet import (
 )
 from accunet_tpu_torch.models.knunet import KMUNet
 from accunet_tpu_torch.models.medmamba import VSSM, Backbone_SpatialMamba, SpatialMamba
+from accunet_tpu_torch.models.multires_unet import MultiResUnet
 from accunet_tpu_torch.models.segmamba import VARIANTS as _SEGMAMBA_VARIANTS
 from accunet_tpu_torch.models.segmamba import SegMamba, build_segmamba
 from accunet_tpu_torch.models.unext import UNext, UNext_S
 from accunet_tpu_torch.models.unext_cmrf import VARIANTS as _CMRF_VARIANTS
 from accunet_tpu_torch.models.unext_cmrf import build_unext_cmrf
 from accunet_tpu_torch.models.swin_unet import WindowAttention
+from accunet_tpu_torch.models.transunet import GroupNorm, TransUNet
 from accunet_tpu_torch.models.u_kan import UKAN
+from accunet_tpu_torch.models.uctransnet import ChannelEmbeddings, UCTransNet
+from accunet_tpu_torch.models.unet import UNetBase
+from accunet_tpu_torch.models.unetpp import UNetPlusPlus
 from accunet_tpu_torch.nn.acc_blocks import MLFC
 from accunet_tpu_torch.nn.attention import TGDC, MDTAAttention, TorchMultiheadAttention
 from accunet_tpu_torch.nn.kan import FractionalJacobiNeuralBlock, KANLinear
@@ -57,11 +66,36 @@ registry: Dict[str, Callable] = {
     "KNUnet": KMUNet,
     "UKAN": UKAN,
     "U-KAN": UKAN,  # the reference factory's spelling
+    "UNet_base": UNetBase,
+    "Unetpp": UNetPlusPlus,
+    "MultiResUnet": MultiResUnet,
+    "UCTransNet": UCTransNet,
+    "TransUNet": TransUNet,
+    "TransUnet_fKAN": functools.partial(TransUNet, mlp_type="fkan"),
+    "TransUNet_Vit_fKAN": functools.partial(TransUNet, backbone="ViT-B_16", mlp_type="fkan"),
+    # the reference's TransUNet_KAN_fJNB: its fKAN MLP is the fractional-Jacobi KAN
+    "TransUNet_fJNB": functools.partial(TransUNet, mlp_type="fkan"),
 }
 
+# models whose JAX counterpart sizes parameters from the input at init (the
+# position embeddings): `build` gives them img_size = input_size
+INPUT_SIZED = frozenset({"TransUNet", "TransUnet_fKAN", "TransUNet_Vit_fKAN", "TransUNet_fJNB"})
 
-def build(name: str, **kwargs):
+
+def build(name: str, input_size: int | None = None, **kwargs):
+    """The registry's model `name`. `input_size`, the side of the images it
+    will see (the CLIs pass theirs), becomes the img_size of an INPUT_SIZED
+    model unless kwargs set one; other models ignore it (UCTransNet keeps its
+    default 224, as JAX's CLI builds it)."""
+    if input_size is not None and name in INPUT_SIZED:
+        kwargs.setdefault("img_size", input_size)
     if name not in registry:
+        # the reference's 'MultiResUnet1_<nfilt>_<alpha>' model names
+        m = re.match(r"^MultiResUnet1?_(\d+)_([\d.]+)$", name)
+        if m:
+            kwargs.setdefault("nfilt", int(m.group(1)))
+            kwargs.setdefault("alpha", float(m.group(2)))
+            return MultiResUnet(**kwargs)
         raise KeyError(f"unknown model {name!r}; available: {sorted(registry)}")
     return registry[name](**kwargs)
 
@@ -98,8 +132,10 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
     StructureAwareSSM's; MDTA's temperature, TGDC's gamma and
     SpatialStateFusion's alpha one; the packed attention in_proj_weight
     xavier-uniform with a zero in_proj_bias; the window attention's
-    relative-position table normal(0.02). Draws come from `generator` in
-    module order."""
+    relative-position table normal(0.02). The UNet baselines': StdConv's raw
+    kernel lecun-normal (as a conv), GroupNorm scale one / shift zero, the
+    position embeddings of UCTransNet and TransUNet zero. Draws come from
+    `generator` in module order."""
     for mod in model.modules():
         if isinstance(mod, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             w = mod.weight
@@ -140,7 +176,9 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
             mod.alpha.fill_(1.0)
             mod.beta.fill_(1.0)
             mod.gamma.zero_()
-        elif isinstance(mod, (nn.BatchNorm2d, nn.LayerNorm)):
+        elif isinstance(mod, (ChannelEmbeddings, TransUNet)):
+            mod.position_embeddings.zero_()
+        elif isinstance(mod, (nn.BatchNorm2d, nn.LayerNorm, GroupNorm)):
             mod.reset_parameters()
         elif isinstance(mod, MLFC) and hasattr(mod, "W"):
             mod.W.zero_()
@@ -148,5 +186,6 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 __all__ = ["ACCUNet", "ACC_UNet", "ACC_UNet_Lite", "ACC_UNet_W", "Backbone_SpatialMamba",
-           "KMUNet", "SegMamba", "SpatialMamba", "UKAN", "UNext", "UNext_S", "VSSM", "build",
-           "build_segmamba", "build_unext_cmrf", "init_parameters", "registry"]
+           "INPUT_SIZED", "KMUNet", "MultiResUnet", "SegMamba", "SpatialMamba", "TransUNet",
+           "UCTransNet", "UKAN", "UNetBase", "UNetPlusPlus", "UNext", "UNext_S", "VSSM",
+           "build", "build_segmamba", "build_unext_cmrf", "init_parameters", "registry"]

@@ -36,6 +36,7 @@ from torch import nn
 from accunet_tpu_torch.nn.acc_blocks import BatchNorm
 from accunet_tpu_torch.nn.ss2d import SSConvSSM
 from accunet_tpu_torch.nn.ssm import SpatialMambaBlock
+from accunet_tpu_torch.ops.conv import conv2d_strided
 
 
 class PatchMerging2D(nn.Module):
@@ -70,7 +71,8 @@ class VSSM(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.head.weight.dtype)
-        x = self.patch_embed_proj(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        p = self.patch_embed_proj
+        x = conv2d_strided(x, p.weight, p.bias, p.stride)
         x = self.patch_embed_norm(x)
         for i in range(len(self.depths)):
             for block in getattr(self, f"layers_{i}_blocks"):
@@ -93,7 +95,8 @@ class _ConvLayer(nn.Module):
         self.use_act = use_act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        c = self.conv
+        x = conv2d_strided(x, c.weight, c.bias, c.stride, c.padding, c.groups)
         if self.norm is not None:
             x = self.norm(x)
         return F.relu(x) if self.use_act else x

@@ -73,13 +73,8 @@ from accunet_tpu_torch.nn.unetr import (
     UnetrUpBlock,
     instance_norm,
 )
-from accunet_tpu_torch.ops.conv import conv1x1, conv2d
+from accunet_tpu_torch.ops.conv import conv1x1, conv2d, conv2d_strided
 from accunet_tpu_torch.ops.resize import resize_bilinear
-
-
-def _conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """A strided, explicitly padded nn.Conv2d on an NHWC tensor."""
-    return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
 def _square(n: int) -> int:
@@ -326,9 +321,10 @@ class MambaEncoder(nn.Module):
         outs = []
         for i in range(4):
             if i == 0:
-                x = _conv_nhwc(self.stem, x)
+                conv = self.stem
             else:
-                x = _conv_nhwc(self.downsample[str(i)], instance_norm(x))
+                conv, x = self.downsample[str(i)], instance_norm(x)
+            x = conv2d_strided(x, conv.weight, conv.bias, conv.stride, conv.padding)
             if self.gscs is not None:
                 x = self.gscs[i](x)
             for layer in self.stages[i]:

@@ -82,7 +82,12 @@ class BatchNorm(nn.BatchNorm2d):
         if not self.training:
             return super().forward(xc).permute(0, 2, 3, 1)
         # batch statistics without running buffers; save_invstd is
-        # 1/sqrt(biased var + eps), so the stats need no second pass over x
+        # 1/sqrt(biased var + eps), so the stats need no second pass over x.
+        # torch's CPU kernel for a channels_last input sums the fp32 variance
+        # ~30x less precisely than its NCHW one (3e-5 of invstd at 8k values
+        # a channel), so a CPU tensor goes through an NCHW copy
+        if xc.device.type == "cpu":
+            xc = xc.contiguous()
         y, mean, invstd = torch.native_batch_norm(xc, self.weight, self.bias, None, None,
                                                   True, 0.0, self.eps)
         if not self.frozen_stats:

@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from accunet_tpu_torch.ops.conv import depthwise_conv2d, linear
+from accunet_tpu_torch.ops.conv import conv2d_strided, depthwise_conv2d, linear
 
 
 def _torch_chunk_sizes(c: int, n: int) -> list[int]:
@@ -100,6 +100,4 @@ class OverlapPatchEmbed(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         p = self.proj
-        y = F.conv2d(x.permute(0, 3, 1, 2), p.weight.to(x.dtype), p.bias.to(x.dtype),
-                     p.stride, p.padding)
-        return self.norm(y.permute(0, 2, 3, 1))
+        return self.norm(conv2d_strided(x, p.weight, p.bias, p.stride, p.padding))

@@ -39,6 +39,32 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = No
     return y
 
 
+def conv2d_strided(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None,
+                   stride=1, padding=0, groups: int = 1) -> torch.Tensor:
+    """nn.Conv2d(stride, padding, groups) on NHWC, its weight and bias cast
+    to x's type: symmetric zero padding, so a patchify conv (kernel =
+    stride, padding 0) is flax's VALID one."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), weight.to(x.dtype),
+                 None if bias is None else bias.to(x.dtype), stride, padding, groups=groups)
+    return y.permute(0, 2, 3, 1)
+
+
+def patchify(x: torch.Tensor, weight: torch.Tensor,
+             bias: torch.Tensor | None = None) -> torch.Tensor:
+    """A patch embedding: nn.Conv2d with stride = kernel p and no padding on
+    NHWC (flax's VALID; rows and columns past the last whole patch drop), as
+    one product of each patch's (kh, kw, c) vector with the weight. torch's
+    CPU (oneDNN) bf16 convolution returns wrong values for narrow ones (8
+    channels, 8x8 or 16x16 patches: errors the size of the output); the
+    product has no such case."""
+    b, h, w, c = x.shape
+    o, _, p, _ = weight.shape
+    hp, wp = h // p, w // p
+    x = x[:, :hp * p, :wp * p].reshape(b, hp, p, wp, p, c).transpose(2, 3)
+    return linear(x.reshape(b, hp, wp, p * p * c), weight.permute(0, 2, 3, 1).reshape(o, -1),
+                  bias)
+
+
 def depthwise_conv1d(x: torch.Tensor, weight: torch.Tensor,
                      bias: torch.Tensor | None = None) -> torch.Tensor:
     """Depthwise 'SAME' convolution over the last axis of x (B, C, L).

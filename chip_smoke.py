@@ -180,7 +180,24 @@ From the root of a checkout, with one CUDA device:
  42. times KNUnet and U-KAN b8 256x256 fp32 inference and train step with
      peak memory and launches, the fused kernels at phase 38's shapes and
      the wgrad at U-KAN's maps beside its plain version, cuDNN's weight-only
-     backward and the bounds. Phases 38-42 print their seconds.
+     backward and the bounds. Phases 38-42 print their seconds;
+ 43. builds the ACC-UNet paper's UNet baselines at full width (UNet_base,
+     Unetpp, MultiResUnet, UCTransNet with img_size 64, TransUNet,
+     TransUnet_fKAN, TransUNet_Vit_fKAN, TransUNet_fJNB; weights drawn on the
+     card) and compares each, b1 64x64 fp32, GPU vs CPU (logits and three
+     module outputs, rel <= 1e-3), with no port kernel launched;
+ 44. runs the train entry point with UNet_base (256x256), UCTransNet (224x224,
+     its default img_size: its 256 preset fails, in JAX too) and TransUNet
+     (224x224) at batch 8 as in phase 7, and checks that no port kernel
+     launched in a train step or a validation forward; the last epoch's ms a
+     step and the run's peak memory;
+ 45. runs the eval entry point on the five families at their sizes (two b8
+     forwards each, no port kernel) and UNet_base with 3 classes (4 logits);
+ 46. times each family's b8 inference in fp32 and bf16 (the compute dtype)
+     and its fp32 train step, with peak memory;
+ 47. times TransUnet_fKAN (614.86M parameters) b8 224x224 inference and its
+     fp32 train step at the largest of b8, b4, b2 that fits. Phases 43-47
+     print their seconds.
 Phases print their seconds. It prints a JSON line of the kernels (the
 launches of every path, the new ones too), then as its last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -591,8 +608,9 @@ def text_recorder():
         SegMamba.forward = forward
 
 
-def run_train_cli(counters, model, want_fn, extra=(), hw=HW, batch=B, prompts=False):
-    """Phases 7, 13, 21, 27, 30, 31 and 36: the train entry point for
+def run_train_cli(counters, model, want_fn, extra=(), hw=HW, batch=B, prompts=False,
+                  timing=None):
+    """Phases 7, 13, 21, 27, 30, 31, 36, 39 and 44: the train entry point for
     `model` (with the arguments `extra`) on a synthetic ISIC-style folder of
     hw x hw images in batches of `batch`: two epochs with a checkpoint
     directory, then --resume auto for a third. With `prompts` the train and
@@ -602,7 +620,8 @@ def run_train_cli(counters, model, want_fn, extra=(), hw=HW, batch=B, prompts=Fa
     steps and of the validation forwards apart: the counts are set to 0
     before each epoch's train or validation pass (engine.run_epoch, which
     fit calls) and read after it. want_fn(steps, val_batches) gives the
-    expected launches."""
+    expected launches. A `timing` dict gets the last epoch's train ms per
+    step and the run's peak device memory (above what earlier phases hold)."""
     from accunet_tpu_torch.cli import train as cli
     from accunet_tpu_torch.train import engine
 
@@ -633,6 +652,8 @@ def run_train_cli(counters, model, want_fn, extra=(), hw=HW, batch=B, prompts=Fa
         else:
             argv.append("--synthetic")
         engine.run_epoch = counted_run_epoch
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # by earlier phases
         try:
             t0 = time.perf_counter()
             _, hist1 = cli.main(argv + ["--epochs", "2"])
@@ -657,6 +678,10 @@ def run_train_cli(counters, model, want_fn, extra=(), hw=HW, batch=B, prompts=Fa
     if prompts and seen != {"with_text": steps + val_batches, "without_text": 0}:
         raise SmokeError(f"{model}: the prompts reached {seen} forwards of {steps} steps and "
                          f"{val_batches} validation batches")
+    if timing is not None:
+        last = hist2[-1]["train"]
+        timing.update(last_epoch_ms_per_step=last["time"] * 1e3 / last["batches"],
+                      peak_mem_gib=(torch.cuda.max_memory_allocated() - held) / 2 ** 30)
     log(f"  {model} {' '.join(extra)} train ({hw}x{hw}, b{batch}"
         + (", prompt CSV" if prompts else "") + f"): {steps} steps + {val_batches} "
         f"val batches in {seconds:.2f} s (3 epochs, "
@@ -2951,6 +2976,133 @@ def time_kan(name):
     return out
 
 
+# phases 43-47: the ACC-UNet paper's UNet baselines; no hand-written kernel
+# runs on their paths, as no Pallas kernel runs on JAX's. By name: (the side
+# the CLIs train and time it at, the module outputs compared GPU vs CPU).
+# UCTransNet runs at 224, its default img_size: at its 256 preset it fails
+# in JAX and in the port (ROADMAP Queue 3)
+_R50_TAPS = ("hybrid_model.block3_unit9", "encoder_norm", "blocks.3")
+ZOO = {"UNet_base": (256, ("down4", "up4", "up1")),
+       "Unetpp": (256, ("conv4_0", "conv2_2", "conv0_4")),
+       "MultiResUnet": (256, ("respath1", "multiresblock5", "multiresblock9")),
+       "UCTransNet": (224, ("down4", "mtc.reconstruct_1", "up1")),
+       "TransUNet": (224, _R50_TAPS),
+       "TransUnet_fKAN": (224, _R50_TAPS),
+       "TransUNet_Vit_fKAN": (224, ("encoder_norm", "blocks.3")),
+       "TransUNet_fJNB": (224, _R50_TAPS)}
+ZOO_FAMILIES = ("UNet_base", "Unetpp", "MultiResUnet", "UCTransNet", "TransUNet")
+ZOO_TRAIN_CLI = ("UNet_base", "UCTransNet", "TransUNet")
+ZOO_CMP_HW = 64
+ZOO_MC_CLASSES = 3  # the eval CLI's multi-class run (UNet_base: n_classes + 1 logits)
+ZOO_BIG = "TransUnet_fKAN"  # 614.86M parameters: its train step's batch is phase 47's
+
+
+def zoo_model(name, side=None, final_sigmoid=True):
+    """`name` at full width (3 channels in, 1 class) on the card, seeded with
+    the JAX package's initialisers drawn on the card (a CPU draw of 615M
+    parameters costs tens of seconds), its BNs moved off their init values;
+    `side` sizes UCTransNet's and TransUNet's position embeddings; eval
+    mode."""
+    from accunet_tpu_torch.models import build, init_parameters
+
+    kw = {} if side is None or name.startswith(("UNet", "Unetpp", "MultiRes")) \
+        else {"img_size": side}
+    with torch.device("cuda"):
+        model = build(name, n_channels=3, n_classes=1, final_sigmoid=final_sigmoid, **kw)
+    init_parameters(model, torch.Generator("cuda").manual_seed(43))
+    return seeded_bns(model, 43).eval()
+
+
+def no_launches(steps, val_batches):
+    """The zoo's train CLI paths: no kernel of the port, steps or validation."""
+    return {"train_steps": dict.fromkeys(KERNELS, 0), "validation": dict.fromkeys(KERNELS, 0)}
+
+
+def compare_zoo_cpu(name, counters):
+    """Phase 43: `name` at full width, b1 ZOO_CMP_HW x ZOO_CMP_HW, fp32
+    logits, GPU vs CPU as compare_on_cpu holds them, and no launch of a port
+    kernel on either side."""
+    model = zoo_model(name, ZOO_CMP_HW, final_sigmoid=False)
+    cpu = copy.deepcopy(model).cpu()
+    del model
+    gc_cuda()
+    c0 = {k: fn.launches for k, fn in counters.items()}
+    err = compare_on_cpu(cpu, name, ZOO_CMP_HW, ZOO[name][1], 43)
+    got = {k: fn.launches - c0[k] for k, fn in counters.items() if fn.launches != c0[k]}
+    if got:
+        raise SmokeError(f"{name}: its forwards launched {got}, expected none")
+    del cpu
+    gc_cuda()
+    return err
+
+
+def time_zoo(name, batches=(B,), dtypes=(torch.float32, torch.bfloat16)):
+    """Phases 46 and 47: `name` at full width at its ZOO side, fp32 (TF32
+    off): b8 inference in each of `dtypes` (the compute dtype over fp32
+    parameters, as JAX's `dtype` field and the train CLI's bf16), then the
+    fp32 train step (weighted Dice+BCE, backward, Adam) at the first of
+    `batches` that fits in the card's memory; ms, img/s and peak memory above
+    what earlier phases hold; CUDA events, 3 iterations after one warm-up."""
+    from accunet_tpu_torch.train.engine import make_train_fns
+
+    side = ZOO[name][0]
+    model = zoo_model(name, side)
+    g = torch.Generator("cuda").manual_seed(46)
+    x = torch.rand(B, side, side, 3, generator=g, device="cuda")
+    gc_cuda()
+    held = torch.cuda.memory_allocated()
+    out = {}
+    for dt in dtypes:
+        model.dtype = dt
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            y = model(x)
+            if y.shape != (B, side, side, 1) or not bool(y.isfinite().all()):
+                raise SmokeError(f"{name} {dt}: output {tuple(y.shape)}, finite "
+                                 f"{bool(y.isfinite().all())}")
+            ms = time_ms(lambda: model(x), iters=3, warmup=1)
+        out[f"inference_{str(dt)[6:]}"] = {
+            "batch": B, "ms_per_batch": ms, "img_per_s": B * 1e3 / ms,
+            "peak_mem_gib": (torch.cuda.max_memory_allocated() - held) / 2 ** 30}
+        del y
+    model.dtype = torch.float32
+    tried = []
+    for b in batches:
+        gc_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        fns = batch = None
+        try:
+            fns = make_train_fns(model.train())
+            batch = {"image": x[:b], "mask": (torch.rand(b, side, side, 1, generator=g,
+                                                          device="cuda") > 0.5).float()}
+            ms = time_ms(lambda: fns.train_step(fns.state, batch), iters=3, warmup=1)
+            _, stats = fns.train_step(fns.state, batch)
+            if not bool(torch.isfinite(stats["loss"])):
+                raise SmokeError(f"non-finite loss in the timed {name} train step")
+        except torch.cuda.OutOfMemoryError:
+            tried.append(b)
+            fns = batch = None
+            continue
+        out["train_step_fp32"] = {
+            "batch": b, "ms_per_step": ms, "img_per_s": b * 1e3 / ms,
+            "peak_mem_gib": (torch.cuda.max_memory_allocated() - held) / 2 ** 30,
+            "out_of_memory_at": tried}
+        break
+    else:
+        raise SmokeError(f"{name}: no train step of batch {batches} fits")
+    del model, fns, batch
+    gc_cuda()
+    s = out["train_step_fp32"]
+    log(f"  {name} {side}x{side}: inference b{B} "
+        + ", ".join(f"{k[10:]} {v['ms_per_batch']:.3f} ms ({v['img_per_s']:.1f} img/s, peak "
+                    f"{v['peak_mem_gib']:.2f} GiB)" for k, v in out.items()
+                    if k.startswith("inference"))
+        + f"; fp32 train step b{s['batch']} {s['ms_per_step']:.3f} ms/step "
+        f"({s['img_per_s']:.1f} img/s), peak {s['peak_mem_gib']:.2f} GiB"
+        + (f" (out of memory at b{tried})" if tried else ""))
+    return out
+
+
 class Phases:
     """Logs each phase's title and, when the next begins (or `end()`), the
     seconds it took."""
@@ -3266,6 +3418,42 @@ def main() -> int:
     log(f"  phases 38-42 took {time.perf_counter() - t_kan:.1f} s")
     log("  " + json.dumps({"card": card, "kan": kan_rates, "kan_checks": kan_checks}))
 
+    phase(f"[43] the UNet baselines (UNet_base, Unetpp, MultiResUnet, UCTransNet, the four "
+          f"TransUNet names) at full width, b1 {ZOO_CMP_HW}x{ZOO_CMP_HW}, GPU vs CPU")
+    t_zoo = time.perf_counter()
+    zoo_checks = {f"{name}_gpu_vs_cpu_rel": compare_zoo_cpu(name, counters) for name in ZOO}
+
+    phase(f"[44] {', '.join(ZOO_TRAIN_CLI)} through accunet_tpu_torch.cli.train on cuda "
+          f"(b{B}; UCTransNet at 224), then --resume auto")
+    zoo_rates = {}
+    for name in ZOO_TRAIN_CLI:
+        timing = {}
+        zoo_launches = run_train_cli(counters, name, no_launches, hw=ZOO[name][0],
+                                     timing=timing)
+        launches[f"{name.lower()}_train_cli_steps"] = zoo_launches["train_steps"]
+        launches[f"{name.lower()}_train_cli_validation"] = zoo_launches["validation"]
+        zoo_rates[f"{name}_train_cli"] = timing
+        log(f"  {name} train CLI: last epoch {timing['last_epoch_ms_per_step']:.1f} ms/step, "
+            f"peak {timing['peak_mem_gib']:.2f} GiB")
+
+    phase(f"[45] the five families through accunet_tpu_torch.cli.eval on cuda (b{B}), binary and "
+          f"UNet_base with {ZOO_MC_CLASSES} classes")
+    for name in ZOO_FAMILIES:
+        launches[f"{name.lower()}_eval_cli"] = run_eval_cli(counters, name, hw=ZOO[name][0],
+                                                            per_forward={})
+    launches["unet_base_mc_eval_cli"] = run_eval_cli(counters, "UNet_base", ZOO_MC_CLASSES,
+                                                     ZOO["UNet_base"][0], per_forward={})
+
+    phase(f"[46] the five families' timing (b{B} inference fp32 and bf16, the fp32 train step)")
+    zoo_rates.update({name: time_zoo(name) for name in ZOO_FAMILIES})
+
+    phase(f"[47] {ZOO_BIG} (614.86M parameters) 224x224: b{B} inference, its fp32 train step at "
+          f"the largest of b{B}, b{B // 2}, b{B // 4} that fits")
+    zoo_rates[ZOO_BIG] = time_zoo(ZOO_BIG, (B, B // 2, B // 4), (torch.float32,))
+    phase.end()
+    log(f"  phases 43-47 took {time.perf_counter() - t_zoo:.1f} s")
+    log("  " + json.dumps({"card": card, "zoo": zoo_rates, "zoo_checks": zoo_checks}))
+
     # the shapes whose times the kernels line lists per kernel
     by_shape = {"hanc_block": ("cnv12", "cnv22", "cnv81", "cnv91"),
                 "respath_level": ("rspth1.level0", "rspth1.level1", "rspth2.level1"),
@@ -3300,7 +3488,8 @@ def main() -> int:
     # "medmamba.stage0"). Phases 39-41's paths (KNUnet's fused scans, U-KAN's
     # wgrad, the Segmamba checkpoint's eval) are in `launches_by_path` too;
     # the fused kernels' `by_shape` adds KNUnet's "knunet.up1-3", the wgrad's
-    # U-KAN's "ukan.*" maps
+    # U-KAN's "ukan.*" maps. Phases 44-45's paths (the UNet baselines' train
+    # and eval CLIs) launch no kernel: `launches_by_path` holds their zeros
     meta = {
         "hanc_block": ("accunet_tpu_torch/csrc/hanc_block.cu",
                        "accunet_tpu/ops/pallas/hanc_block.py:335", "eval_cli"),
