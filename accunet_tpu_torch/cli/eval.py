@@ -6,11 +6,12 @@
 
 Any segmentation model of the registry evaluates the same way (`--model
 UNext`, `KNUnet`, `UKAN`, the ported UNext_CMRF names, `UNet_base`, `Unetpp`,
-`MultiResUnet`, `UCTransNet` with --img-size 224, the TransUNet names, built
-at the image size, ...). A `Segmamba*`
-name is built with in_chans / out_chans, as the train CLI builds it (JAX's
-eval CLI builds every model with n_channels / n_classes, which a SegMamba
-builder refuses); a deep-supervision model is scored on its main output. A
+`MultiResUnet`, `UCTransNet` with --img-size 224, the TransUNet names and
+SegViT_fKAN, built at the image size, `SwinUnet` and `SMESwinUnet` at 224,
+`TinyUNet`, ...), built by `models.build_for` as every CLI builds it: a
+`Segmamba*` name and SegViT_fKAN with in_chans / out_chans (JAX's eval CLI
+builds every model with n_channels / n_classes, which their builders
+refuse); a deep-supervision model is scored on its main output. A
 TEXT_MODELS name (cli/train.py) reads the prompt file of --test-dir, as the
 train CLI reads its folders', and gives the model each image's prompt
 embedding; without a prompt file it evaluates on the images alone. Without
@@ -57,7 +58,7 @@ def main(argv=None):
     from accunet_tpu_torch.data.loader import BatchLoader
     from accunet_tpu_torch.data.transforms import ValGenerator
     from accunet_tpu_torch.eval.evaluate import evaluate_model
-    from accunet_tpu_torch.models import build as build_model, init_parameters
+    from accunet_tpu_torch.models import build_for, init_parameters
     from accunet_tpu_torch.port import load_reference_checkpoint
     from accunet_tpu_torch.train.engine import main_output
 
@@ -81,11 +82,7 @@ def main(argv=None):
     sample, _ = ds[0]
     n_ch = sample["image"].shape[-1]
     kwargs = ast.literal_eval(args.model_kwargs) if args.model_kwargs else {}
-    if args.model.lower().startswith("segmamba"):  # SegMamba builders, as in the train CLI
-        model = build_model(args.model, in_chans=n_ch, out_chans=args.n_classes, **kwargs)
-    else:
-        model = build_model(args.model, cfg.data.img_size, n_channels=n_ch,
-                            n_classes=args.n_classes, **kwargs)
+    model = build_for(args.model, cfg.data.img_size, n_ch, args.n_classes, **kwargs)
     init_parameters(model, torch.Generator().manual_seed(0))
     if args.torch_ckpt:
         load_reference_checkpoint(model, args.torch_ckpt)

@@ -74,7 +74,7 @@ def main(argv=None):
     from accunet_tpu_torch.data.loader import BatchLoader
     from accunet_tpu_torch.data.transforms import ValGenerator
     from accunet_tpu_torch.eval.gradcam import seg_grad_cam
-    from accunet_tpu_torch.models import build as build_model, init_parameters
+    from accunet_tpu_torch.models import build_for, init_parameters
     from accunet_tpu_torch.port import load_reference_checkpoint, read_checkpoint
 
     device = torch.device(args.device)
@@ -94,11 +94,7 @@ def main(argv=None):
     sample, _ = ds[0]
     n_ch = sample["image"].shape[-1]
     kwargs = ast.literal_eval(args.model_kwargs) if args.model_kwargs else {}
-    if args.model.lower().startswith("segmamba"):  # SegMamba builders, as in JAX
-        model = build_model(args.model, in_chans=n_ch, out_chans=args.n_classes, **kwargs)
-    else:
-        model = build_model(args.model, cfg.data.img_size, n_channels=n_ch,
-                            n_classes=args.n_classes, **kwargs)
+    model = build_for(args.model, cfg.data.img_size, n_ch, args.n_classes, **kwargs)
     init_parameters(model, torch.Generator().manual_seed(0))
     if args.ckpt:
         model.load_state_dict(read_checkpoint(args.ckpt), strict=True)

@@ -12,11 +12,9 @@
     python -m accunet_tpu_torch.cli.profile --model ACC_UNet_W --img 512 --batch 2 \
         [--model-kwargs "{'hybrid_expand_dw': True}"]
 
-ACC-UNet models are built with n_classes=1, as the JAX profile CLI does
-(accunet_tpu/cli/profile.py:42): for a multi-class configuration the 1x1
-head has 1 output channel instead of n_classes+1 (4 for 3 classes), which is
-noise beside the rest of the model. SegMamba models are built with
-out_chans=--n-classes (1 by default), as the train CLIs build them; with
+Every model is built with --n-classes (1 by default) by `models.build_for`,
+as the train CLI builds it (the JAX profile CLI builds every model but
+SegMamba's with n_classes=1, accunet_tpu/cli/profile.py:42); with
 --n-classes > 1 the train step takes multiclass_dice_ce on class ids
 0..n_classes (a deep-supervision model's binary loss raises, as in JAX).
 
@@ -135,7 +133,7 @@ def main(argv=None):
     from torch.profiler import ProfilerActivity, profile
 
     from accunet_tpu_torch.config import get_config
-    from accunet_tpu_torch.models import build as build_model, init_parameters
+    from accunet_tpu_torch.models import build_for, init_parameters, takes_dtype
     from accunet_tpu_torch.ops.kernels.dwconv2d import dwconv2d_wgrad
     from accunet_tpu_torch.ops.kernels.expand_dw import expand_dw
     from accunet_tpu_torch.ops.kernels.hanc_block import hanc_block
@@ -157,14 +155,10 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     dtype = getattr(torch, args.dtype)
     kwargs = ast.literal_eval(args.model_kwargs) if args.model_kwargs else {}
-    if args.model.startswith("Segmamba"):  # SegMamba builders, as in JAX: no dtype
-        model = build_model(args.model, in_chans=args.channels, out_chans=args.n_classes, **kwargs)
-        if dtype != torch.float32:
-            print(f"{args.model} takes no compute dtype and runs in float32, as in JAX")
-            args.dtype, dtype = "float32", torch.float32
-    else:
-        model = build_model(args.model, args.img, n_channels=args.channels, n_classes=1,
-                            dtype=dtype, **kwargs)
+    if dtype != torch.float32 and not takes_dtype(args.model):
+        print(f"{args.model} takes no compute dtype and runs in float32, as in JAX")
+        args.dtype, dtype = "float32", torch.float32
+    model = build_for(args.model, args.img, args.channels, args.n_classes, dtype, **kwargs)
     init_parameters(model, torch.Generator().manual_seed(0))
     model = model.to(device).eval()
     gen = torch.Generator(device).manual_seed(1)

@@ -16,6 +16,10 @@ names) train with weighted Dice+BCE and run no hand-written kernel; a
 TransUNet name is built at the image size, whose grid sizes its position
 embeddings, and UCTransNet keeps its img_size 224, as JAX's CLI builds it
 (train it with --img-size 224: at its 256 preset it fails as JAX's does).
+SwinUnet and SMESwinUnet (224, SGD by the config), SegViT_fKAN (built with
+in_chans / out_chans and the image size; binary Dice+BCE on its logits)
+and TinyUNet (256) run no hand-written kernel either; `models.build_for`
+is the build rule of every CLI.
 `--synthetic` trains on a generated random npy folder instead
 of dataset directories. Seeding: numpy, the loaders and the model's initialisation (a
 torch.Generator) all take cfg.train.seed. `--device cuda` (the default)
@@ -138,7 +142,7 @@ def main(argv=None):
     from accunet_tpu_torch.data.dataset import SegmentationDataset, list_split_ids
     from accunet_tpu_torch.data.loader import BatchLoader, PrefetchLoader
     from accunet_tpu_torch.data.transforms import RandomGenerator, ValGenerator
-    from accunet_tpu_torch.models import build as build_model, init_parameters
+    from accunet_tpu_torch.models import build_for, init_parameters, takes_dtype
     from accunet_tpu_torch.train import losses as L
     from accunet_tpu_torch.train import metrics as M
     from accunet_tpu_torch.train.engine import (
@@ -215,14 +219,11 @@ def main(argv=None):
     sample, _ = train_ds[0]
     n_cls = args.n_classes
     n_ch = sample["image"].shape[-1]
-    if args.model.lower().startswith("segmamba"):  # SegMamba builders, as in JAX
-        if compute_dtype != torch.float32:
-            logging.info("%s trains in float32: SegMamba models take no compute dtype, as in "
-                         "JAX", args.model)
-        model = build_model(args.model, in_chans=n_ch, out_chans=n_cls, **cfg.model.kwargs)
-    else:
-        model = build_model(args.model, cfg.data.img_size, n_channels=n_ch, n_classes=n_cls,
-                            dtype=compute_dtype, **cfg.model.kwargs)
+    if compute_dtype != torch.float32 and not takes_dtype(args.model):
+        logging.info("%s trains in float32: SegMamba models take no compute dtype, as in JAX",
+                     args.model)
+    model = build_for(args.model, cfg.data.img_size, n_ch, n_cls, compute_dtype,
+                      **cfg.model.kwargs)
     init_parameters(model, torch.Generator().manual_seed(cfg.train.seed))
     model = model.to(device)
 

@@ -6,7 +6,9 @@ variants raise NotImplementedError when built), MedMamba, the SpatialMamba
 classifier, KNUnet (KMUNet), U-KAN, and the ACC-UNet paper's UNet baselines:
 UNet_base, Unetpp, MultiResUnet (and the reference's
 'MultiResUnet1_<nfilt>_<alpha>' names), UCTransNet and the four TransUNet
-names."""
+names, and the rest of its comparison zoo: SwinUnet, SMESwinUnet,
+SegViT_fKAN and TinyUNet. `build_for` is the one rule by which the CLIs
+build a name for their data."""
 
 from __future__ import annotations
 
@@ -32,7 +34,10 @@ from accunet_tpu_torch.models.segmamba import SegMamba, build_segmamba
 from accunet_tpu_torch.models.unext import UNext, UNext_S
 from accunet_tpu_torch.models.unext_cmrf import VARIANTS as _CMRF_VARIANTS
 from accunet_tpu_torch.models.unext_cmrf import build_unext_cmrf
-from accunet_tpu_torch.models.swin_unet import WindowAttention
+from accunet_tpu_torch.models.seg_fvit import SegViTfKAN
+from accunet_tpu_torch.models.sme_swin_unet import SMESwinUnet
+from accunet_tpu_torch.models.swin_unet import SwinUnet, WindowAttention
+from accunet_tpu_torch.models.tiny_unet import TinyUNet
 from accunet_tpu_torch.models.transunet import GroupNorm, TransUNet
 from accunet_tpu_torch.models.u_kan import UKAN
 from accunet_tpu_torch.models.uctransnet import ChannelEmbeddings, UCTransNet
@@ -75,11 +80,23 @@ registry: Dict[str, Callable] = {
     "TransUNet_Vit_fKAN": functools.partial(TransUNet, backbone="ViT-B_16", mlp_type="fkan"),
     # the reference's TransUNet_KAN_fJNB: its fKAN MLP is the fractional-Jacobi KAN
     "TransUNet_fJNB": functools.partial(TransUNet, mlp_type="fkan"),
+    "SwinUnet": SwinUnet,
+    "SMESwinUnet": SMESwinUnet,
+    "SegViT_fKAN": SegViTfKAN,  # takes in_chans / out_chans, as in JAX
+    "TinyUNet": TinyUNet,
 }
 
 # models whose JAX counterpart sizes parameters from the input at init (the
-# position embeddings): `build` gives them img_size = input_size
-INPUT_SIZED = frozenset({"TransUNet", "TransUnet_fKAN", "TransUNet_Vit_fKAN", "TransUNet_fJNB"})
+# position embeddings): `build` gives them img_size = input_size. SwinUnet
+# and SMESwinUnet fix their token grid by img_size (224) as JAX's do
+INPUT_SIZED = frozenset({"TransUNet", "TransUnet_fKAN", "TransUNet_Vit_fKAN", "TransUNet_fJNB",
+                         "SegViT_fKAN"})
+# builders that take in_chans / out_chans where the others take n_channels /
+# n_classes, as JAX's: the SegMamba family, which also takes no compute
+# dtype (it runs in its parameters' type), and SegViT_fKAN, which does (JAX's
+# CLIs pass it n_channels and fail: ROADMAP Queue 3)
+SEGMAMBA_NAMES = frozenset(_SEGMAMBA_VARIANTS)
+IN_OUT_CHANS = SEGMAMBA_NAMES | {"SegViT_fKAN"}
 
 
 def build(name: str, input_size: int | None = None, **kwargs):
@@ -98,6 +115,27 @@ def build(name: str, input_size: int | None = None, **kwargs):
             return MultiResUnet(**kwargs)
         raise KeyError(f"unknown model {name!r}; available: {sorted(registry)}")
     return registry[name](**kwargs)
+
+
+def takes_dtype(name: str) -> bool:
+    """Whether `name`'s builder takes a compute dtype (not a SegMamba name)."""
+    return name not in SEGMAMBA_NAMES
+
+
+def build_for(name: str, input_size: int, n_channels: int, n_classes: int,
+              dtype: torch.dtype | None = None, **kwargs):
+    """The model `name` for input_size x input_size images of n_channels and
+    n_classes classes, as every CLI builds it: in_chans / out_chans for the
+    IN_OUT_CHANS names, else n_channels / n_classes; `dtype` (the compute
+    type; None: the parameters') to every builder that takes one
+    (`takes_dtype`)."""
+    if name in IN_OUT_CHANS:
+        kwargs.update(in_chans=n_channels, out_chans=n_classes)
+    else:
+        kwargs.update(n_channels=n_channels, n_classes=n_classes)
+    if dtype is not None and takes_dtype(name):
+        kwargs["dtype"] = dtype
+    return build(name, input_size, **kwargs)
 
 
 def _lecun_normal(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
@@ -134,8 +172,8 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
     xavier-uniform with a zero in_proj_bias; the window attention's
     relative-position table normal(0.02). The UNet baselines': StdConv's raw
     kernel lecun-normal (as a conv), GroupNorm scale one / shift zero, the
-    position embeddings of UCTransNet and TransUNet zero. Draws come from
-    `generator` in module order."""
+    position embeddings of UCTransNet, TransUNet and SegViT_fKAN zero.
+    Draws come from `generator` in module order."""
     for mod in model.modules():
         if isinstance(mod, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             w = mod.weight
@@ -176,7 +214,7 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
             mod.alpha.fill_(1.0)
             mod.beta.fill_(1.0)
             mod.gamma.zero_()
-        elif isinstance(mod, (ChannelEmbeddings, TransUNet)):
+        elif isinstance(mod, (ChannelEmbeddings, TransUNet, SegViTfKAN)):
             mod.position_embeddings.zero_()
         elif isinstance(mod, (nn.BatchNorm2d, nn.LayerNorm, GroupNorm)):
             mod.reset_parameters()
@@ -186,6 +224,8 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 __all__ = ["ACCUNet", "ACC_UNet", "ACC_UNet_Lite", "ACC_UNet_W", "Backbone_SpatialMamba",
-           "INPUT_SIZED", "KMUNet", "MultiResUnet", "SegMamba", "SpatialMamba", "TransUNet",
-           "UCTransNet", "UKAN", "UNetBase", "UNetPlusPlus", "UNext", "UNext_S", "VSSM",
-           "build", "build_segmamba", "build_unext_cmrf", "init_parameters", "registry"]
+           "INPUT_SIZED", "IN_OUT_CHANS", "KMUNet", "MultiResUnet", "SEGMAMBA_NAMES",
+           "SMESwinUnet", "SegMamba", "SegViTfKAN", "SpatialMamba", "SwinUnet", "TinyUNet",
+           "TransUNet", "UCTransNet", "UKAN", "UNetBase", "UNetPlusPlus", "UNext", "UNext_S",
+           "VSSM", "build", "build_for", "build_segmamba", "build_unext_cmrf",
+           "init_parameters", "registry", "takes_dtype"]

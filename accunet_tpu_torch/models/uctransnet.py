@@ -44,7 +44,7 @@ from accunet_tpu_torch.nn.unext_blocks import LayerNorm
 from accunet_tpu_torch.ops.conv import conv1x1, linear, patchify
 from accunet_tpu_torch.ops.pooling import global_avg_pool, max_pool2d, upsample_nearest
 
-PATCH_SIZES = (16, 8, 4, 2)  # one per skip level: all give (img_size // 16)^2 tokens
+PATCH_SIZES = (16, 8, 4, 2)  # UCTransNet's, one per skip level: (img_size // 16)^2 tokens
 EXPAND_RATIO = 4  # BlockViT's MLP width over its level's channels
 NUM_HEADS = 4  # AttentionOrg's heads
 
@@ -166,12 +166,15 @@ class Reconstruct(nn.Module):
 
 
 class ChannelTransformer(nn.Module):
-    """The four skips en (B, H / 2^i, .., C_i) -> the same shapes."""
+    """The four skips en (B, H / 2^i, .., C_i) -> the same shapes. Level i
+    is patchified by patch_sizes[i]; every level gives (img_size //
+    patch_sizes[0])^2 tokens (SMESwinUnet's patches give one)."""
 
-    def __init__(self, channel_num: Sequence[int], img_size: int, num_layers: int = 4):
+    def __init__(self, channel_num: Sequence[int], img_size: int,
+                 patch_sizes: Sequence[int] = PATCH_SIZES, num_layers: int = 4):
         super().__init__()
-        n_patches = (img_size // PATCH_SIZES[0]) ** 2
-        for i, (p, c) in enumerate(zip(PATCH_SIZES, channel_num)):
+        n_patches = (img_size // patch_sizes[0]) ** 2
+        for i, (p, c) in enumerate(zip(patch_sizes, channel_num)):
             setattr(self, f"embeddings_{i + 1}", ChannelEmbeddings(p, c, n_patches))
             setattr(self, f"reconstruct_{i + 1}", Reconstruct(c, c, p))
         self.encoder = CTransEncoder(channel_num, num_layers)
@@ -223,7 +226,8 @@ class UCTransNet(nn.Module):
         self.down2 = _NConvs(c * 2, c * 4)
         self.down3 = _NConvs(c * 4, c * 8)
         self.down4 = _NConvs(c * 8, c * 8)
-        self.mtc = ChannelTransformer((c, c * 2, c * 4, c * 8), img_size, num_layers)
+        self.mtc = ChannelTransformer((c, c * 2, c * 4, c * 8), img_size,
+                                      num_layers=num_layers)
         self.up4 = UpBlockAttention(c * 8, c * 8, c * 4)
         self.up3 = UpBlockAttention(c * 4, c * 4, c * 2)
         self.up2 = UpBlockAttention(c * 2, c * 2, c)

@@ -18,12 +18,13 @@ token layouts): counterpart of accunet_tpu/nn/attention.py.
     TGDC / TGDCFusion: the mean text token -> a softmax over 4 depthwise
         conv1d branches over the tokens; two gated passes with shared
         weights, gamma * LayerNorm, plus the input
+    ExternalAttention (SMESwinUnet's skips): mk to S memory slots, a softmax
+        over the tokens, each token's slots divided by their sum, mv back
 
 Every fusion returns its input unchanged when the text is None. Attention
 here is plain matmul and softmax, as JAX computes it with plain XLA ops.
 Parameter names are the flax submodule names (`mlp_0` as `mlp.0`, ...), so
-the JAX tree loads with `state_dict_from_jax`. Not ported:
-`ExternalAttention`, which no ported model uses (ROADMAP Queue 1 item 7).
+the JAX tree loads with `state_dict_from_jax`.
 """
 
 from __future__ import annotations
@@ -33,7 +34,22 @@ import torch.nn.functional as F
 from torch import nn
 
 from accunet_tpu_torch.nn.kan import KAN
-from accunet_tpu_torch.ops.conv import conv1x1, conv2d, depthwise_conv1d
+from accunet_tpu_torch.ops.conv import conv1x1, conv2d, depthwise_conv1d, linear
+
+
+class ExternalAttention(nn.Module):
+    """External attention over tokens (B, N, d_model) with s shared memory
+    slots: bias-free mk, a softmax over the token axis, each token's slots
+    divided by their sum, bias-free mv."""
+
+    def __init__(self, d_model: int, s: int = 64):
+        super().__init__()
+        self.mk = nn.Linear(d_model, s, bias=False)
+        self.mv = nn.Linear(s, d_model, bias=False)
+
+    def forward(self, queries: torch.Tensor) -> torch.Tensor:
+        attn = torch.softmax(linear(queries, self.mk.weight), dim=1)
+        return linear(attn / attn.sum(dim=2, keepdim=True), self.mv.weight)
 
 
 class MDTAAttention(nn.Module):

@@ -1,7 +1,8 @@
-"""Bilinear resize on NHWC tensors, counterpart of accunet_tpu/ops/resize.py
-(`resize_bilinear`, `upsample_bilinear_2x`).
+"""Bilinear and bicubic resize on NHWC tensors, counterpart of
+accunet_tpu/ops/resize.py (`resize_bilinear`, `upsample_bilinear_2x`,
+`resize_bicubic`).
 
-Both run `F.interpolate` on the channels_last NCHW view, as the JAX
+All run `F.interpolate` on the channels_last NCHW view, as the JAX
 functions are held to it (tests/test_resize.py). Where JAX departs from
 torch the port follows JAX: an output axis of size 1 with
 align_corners=False samples source 0 (`_axis_weights`), where torch samples
@@ -34,3 +35,12 @@ def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int],
 def upsample_bilinear_2x(x: torch.Tensor, align_corners: bool = False) -> torch.Tensor:
     """F.interpolate(scale_factor=2, mode='bilinear') on NHWC."""
     return resize_bilinear(x, (2 * x.shape[1], 2 * x.shape[2]), align_corners)
+
+
+def resize_bicubic(x: torch.Tensor, out_hw: tuple[int, int],
+                   align_corners: bool = False) -> torch.Tensor:
+    """Bicubic resize of (B, H, W, C) to (B, H', W'): Keys' cubic with a =
+    -0.75 and clamped borders, torch's and JAX's `resize_bicubic`."""
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(out_hw), mode="bicubic",
+                      align_corners=align_corners)
+    return y.permute(0, 2, 3, 1)

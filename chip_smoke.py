@@ -197,6 +197,21 @@ From the root of a checkout, with one CUDA device:
      and its fp32 train step, with peak memory;
  47. times TransUnet_fKAN (614.86M parameters) b8 224x224 inference and its
      fp32 train step at the largest of b8, b4, b2 that fits. Phases 43-47
+     print their seconds;
+ 48. builds SwinUnet, SMESwinUnet (224x224, their fixed grid), SegViT_fKAN
+     and TinyUNet (64x64) at full width (weights drawn on the card, as the
+     CLIs build them through models.build_for) and compares each, b1 fp32,
+     GPU vs CPU (logits and three module outputs, rel <= 1e-3), with no
+     port kernel launched, and SMESwinUnet's boundary mask GPU vs CPU, which
+     must be equal;
+ 49. runs the train entry point with the four (SwinUnet and SMESwinUnet at
+     224x224 with SGD, SegViT_fKAN at 224x224, TinyUNet at 256x256) for two
+     epochs at the largest of b8, b4, b2 that fits, and checks that no port
+     kernel launched; the last epoch's ms a step and the peak memory;
+ 50. runs the eval entry point on the four at their sizes (two b8 forwards
+     each, no port kernel) and SwinUnet with 3 classes (4 logits);
+ 51. times each one's b8 inference in fp32 and bf16 and its fp32 train step
+     at the largest of b8, b4, b2 that fits, with peak memory. Phases 48-51
      print their seconds.
 Phases print their seconds. It prints a JSON line of the kernels (the
 launches of every path, the new ones too), then as its last line
@@ -609,11 +624,11 @@ def text_recorder():
 
 
 def run_train_cli(counters, model, want_fn, extra=(), hw=HW, batch=B, prompts=False,
-                  timing=None):
-    """Phases 7, 13, 21, 27, 30, 31, 36, 39 and 44: the train entry point for
-    `model` (with the arguments `extra`) on a synthetic ISIC-style folder of
-    hw x hw images in batches of `batch`: two epochs with a checkpoint
-    directory, then --resume auto for a third. With `prompts` the train and
+                  timing=None, resume=True):
+    """Phases 7, 13, 21, 27, 30, 31, 36, 39, 44 and 49: the train entry point
+    for `model` (with the arguments `extra`) on a synthetic ISIC-style folder
+    of hw x hw images in batches of `batch`: two epochs with a checkpoint
+    directory, then (`resume`) --resume auto for a third. With `prompts` the train and
     validation folders (`batch` and `batch` / 2 images: a step and a
     validation batch an epoch) each hold a prompt CSV, and every forward
     must have met the prompts' embeddings. Returns the launches of the train
@@ -656,9 +671,11 @@ def run_train_cli(counters, model, want_fn, extra=(), hw=HW, batch=B, prompts=Fa
         held = torch.cuda.memory_allocated()  # by earlier phases
         try:
             t0 = time.perf_counter()
-            _, hist1 = cli.main(argv + ["--epochs", "2"])
+            state, hist1 = cli.main(argv + ["--epochs", "2"])
             saved = sorted(os.listdir(ckpt))
-            state, hist2 = cli.main(argv + ["--epochs", "3", "--resume", "auto"])
+            hist2 = []
+            if resume:
+                state, hist2 = cli.main(argv + ["--epochs", "3", "--resume", "auto"])
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
         finally:
@@ -668,7 +685,8 @@ def run_train_cli(counters, model, want_fn, extra=(), hw=HW, batch=B, prompts=Fa
     steps = sum(h["train"]["batches"] for h in hist1 + hist2)
     val_batches = sum(h["val"]["batches"] for h in hist1 + hist2)
     losses = [h[s]["loss"] for h in hist1 + hist2 for s in ("train", "val")]
-    if epochs != [1, 2, 3] or "epoch_0002.pth.tar" not in saved or state.step != steps:
+    if epochs != [1, 2, 3][:3 if resume else 2] or "epoch_0002.pth.tar" not in saved \
+            or state.step != steps:
         raise SmokeError(f"train/resume: epochs {epochs}, saved {saved}, step {state.step}")
     if not all(np.isfinite(losses)):
         raise SmokeError(f"non-finite losses {losses}")
@@ -679,13 +697,14 @@ def run_train_cli(counters, model, want_fn, extra=(), hw=HW, batch=B, prompts=Fa
         raise SmokeError(f"{model}: the prompts reached {seen} forwards of {steps} steps and "
                          f"{val_batches} validation batches")
     if timing is not None:
-        last = hist2[-1]["train"]
+        last = (hist1 + hist2)[-1]["train"]
         timing.update(last_epoch_ms_per_step=last["time"] * 1e3 / last["batches"],
                       peak_mem_gib=(torch.cuda.max_memory_allocated() - held) / 2 ** 30)
     log(f"  {model} {' '.join(extra)} train ({hw}x{hw}, b{batch}"
         + (", prompt CSV" if prompts else "") + f"): {steps} steps + {val_batches} "
-        f"val batches in {seconds:.2f} s (3 epochs, "
-        f"resumed after 2 from {saved[-1]}), losses {[round(v, 4) for v in losses]}, kept "
+        f"val batches in {seconds:.2f} s ("
+        + (f"3 epochs, resumed after 2 from {saved[-1]}" if resume else "2 epochs")
+        + f"), losses {[round(v, 4) for v in losses]}, kept "
         f"{kept}; launches {launches}" + (f"; SegMamba forwards {seen}" if prompts else ""))
     return launches
 
@@ -2998,17 +3017,18 @@ ZOO_BIG = "TransUnet_fKAN"  # 614.86M parameters: its train step's batch is phas
 
 
 def zoo_model(name, side=None, final_sigmoid=True):
-    """`name` at full width (3 channels in, 1 class) on the card, seeded with
+    """`name` at full width (3 channels in, 1 class) built as the CLIs build
+    it (`models.build_for`) for side x side images, on the card, seeded with
     the JAX package's initialisers drawn on the card (a CPU draw of 615M
     parameters costs tens of seconds), its BNs moved off their init values;
-    `side` sizes UCTransNet's and TransUNet's position embeddings; eval
-    mode."""
-    from accunet_tpu_torch.models import build, init_parameters
+    `side` also sizes UCTransNet's position embeddings; eval mode."""
+    from accunet_tpu_torch.models import build_for, init_parameters
 
-    kw = {} if side is None or name.startswith(("UNet", "Unetpp", "MultiRes")) \
-        else {"img_size": side}
+    kw = {"img_size": side} if name == "UCTransNet" and side else {}
+    if name not in ("SegViT_fKAN", "TinyUNet"):  # their heads give logits alone
+        kw["final_sigmoid"] = final_sigmoid
     with torch.device("cuda"):
-        model = build(name, n_channels=3, n_classes=1, final_sigmoid=final_sigmoid, **kw)
+        model = build_for(name, side, 3, 1, **kw).cuda()  # index buffers made from numpy
     init_parameters(model, torch.Generator("cuda").manual_seed(43))
     return seeded_bns(model, 43).eval()
 
@@ -3018,16 +3038,17 @@ def no_launches(steps, val_batches):
     return {"train_steps": dict.fromkeys(KERNELS, 0), "validation": dict.fromkeys(KERNELS, 0)}
 
 
-def compare_zoo_cpu(name, counters):
-    """Phase 43: `name` at full width, b1 ZOO_CMP_HW x ZOO_CMP_HW, fp32
-    logits, GPU vs CPU as compare_on_cpu holds them, and no launch of a port
-    kernel on either side."""
-    model = zoo_model(name, ZOO_CMP_HW, final_sigmoid=False)
+def compare_zoo_cpu(name, counters, side=ZOO_CMP_HW, taps=None):
+    """Phases 43 and 48: `name` at full width, b1 side x side, fp32 logits
+    and the `taps` module outputs (ZOO's by default), GPU vs CPU as
+    compare_on_cpu holds them, and no launch of a port kernel on either
+    side."""
+    model = zoo_model(name, side, final_sigmoid=False)
     cpu = copy.deepcopy(model).cpu()
     del model
     gc_cuda()
     c0 = {k: fn.launches for k, fn in counters.items()}
-    err = compare_on_cpu(cpu, name, ZOO_CMP_HW, ZOO[name][1], 43)
+    err = compare_on_cpu(cpu, name, side, taps or ZOO[name][1], 43)
     got = {k: fn.launches - c0[k] for k, fn in counters.items() if fn.launches != c0[k]}
     if got:
         raise SmokeError(f"{name}: its forwards launched {got}, expected none")
@@ -3037,7 +3058,7 @@ def compare_zoo_cpu(name, counters):
 
 
 def time_zoo(name, batches=(B,), dtypes=(torch.float32, torch.bfloat16)):
-    """Phases 46 and 47: `name` at full width at its ZOO side, fp32 (TF32
+    """Phases 46, 47 and 51: `name` at full width at its ZOO (ZOO2) side, fp32 (TF32
     off): b8 inference in each of `dtypes` (the compute dtype over fp32
     parameters, as JAX's `dtype` field and the train CLI's bf16), then the
     fp32 train step (weighted Dice+BCE, backward, Adam) at the first of
@@ -3045,7 +3066,7 @@ def time_zoo(name, batches=(B,), dtypes=(torch.float32, torch.bfloat16)):
     what earlier phases hold; CUDA events, 3 iterations after one warm-up."""
     from accunet_tpu_torch.train.engine import make_train_fns
 
-    side = ZOO[name][0]
+    side = (ZOO[name] if name in ZOO else ZOO2[name])[0]
     model = zoo_model(name, side)
     g = torch.Generator("cuda").manual_seed(46)
     x = torch.rand(B, side, side, 3, generator=g, device="cuda")
@@ -3101,6 +3122,58 @@ def time_zoo(name, batches=(B,), dtypes=(torch.float32, torch.bfloat16)):
         f"({s['img_per_s']:.1f} img/s), peak {s['peak_mem_gib']:.2f} GiB"
         + (f" (out of memory at b{tried})" if tried else ""))
     return out
+
+
+# phases 48-51: the rest of the ACC-UNet paper's comparison zoo; no
+# hand-written kernel runs on their paths, as no Pallas kernel runs on JAX's.
+# By name: (the side the CLIs train and time it at, the side of its GPU vs
+# CPU comparison, the module outputs compared). SwinUnet and SMESwinUnet fix
+# their token grid by img_size (224, their preset), in JAX too
+ZOO2 = {"SwinUnet": (224, 224, ("layers_2_downsample", "norm", "layers_up_3_blocks.1")),
+        "SMESwinUnet": (224, 224, ("mcct.reconstruct_2", "EA_channeld2", "layers_up_3_blocks.1")),
+        "SegViT_fKAN": (224, 64, ("encoder_norm", "encoder5", "decoder2")),
+        "TinyUNet": (256, 64, ("encoder4_cmrf", "decoder3_cmrf", "decoder1_cmrf"))}
+
+
+def compare_boundary_mask():
+    """Phase 48: SMESwinUnet's boundary mask of a normal and of a [0, 1)
+    image at its comparison side, GPU vs CPU: equal, pixel for pixel."""
+    from accunet_tpu_torch.models.sme_swin_unet import boundary_mask
+
+    side = ZOO2["SMESwinUnet"][1]
+    rng = np.random.default_rng(48)
+    masks = {}
+    for label, img in (("normal", rng.standard_normal((1, side, side, 3), dtype=np.float32)),
+                       ("uniform", rng.random((1, side, side, 3), dtype=np.float32))):
+        x = torch.from_numpy(img)
+        want, got = boundary_mask(x), boundary_mask(x.cuda()).cpu()
+        if not torch.equal(got, want):
+            raise SmokeError(f"SMESwinUnet's boundary mask ({label} image): "
+                             f"{int((got != want).sum())} pixels differ GPU vs CPU")
+        masks[label] = int(want.sum())
+    log(f"  SMESwinUnet boundary mask equal GPU vs CPU: {masks} of {side * side} pixels set")
+    return masks
+
+
+def run_zoo2_train_cli(counters, name):
+    """Phase 49: the train entry point for `name` at its ZOO2 side, two
+    epochs at the largest of b8, b4, b2 that fits, with no port kernel
+    launched; the last epoch's ms a step and the peak memory."""
+    tried = []
+    for b in (B, B // 2, B // 4):
+        gc_cuda()  # what an out-of-memory attempt held
+        timing = {}
+        try:
+            zoo_launches = run_train_cli(counters, name, no_launches, hw=ZOO2[name][0], batch=b,
+                                         timing=timing, resume=False)
+        except torch.cuda.OutOfMemoryError:
+            tried.append(b)
+            continue
+        log(f"  {name} train CLI b{b}: last epoch {timing['last_epoch_ms_per_step']:.1f} "
+            f"ms/step, peak {timing['peak_mem_gib']:.2f} GiB"
+            + (f" (out of memory at b{tried})" if tried else ""))
+        return zoo_launches, {**timing, "batch": b, "out_of_memory_at": tried}
+    raise SmokeError(f"{name}: no train CLI batch of {(B, B // 2, B // 4)} fits")
 
 
 class Phases:
@@ -3454,6 +3527,37 @@ def main() -> int:
     log(f"  phases 43-47 took {time.perf_counter() - t_zoo:.1f} s")
     log("  " + json.dumps({"card": card, "zoo": zoo_rates, "zoo_checks": zoo_checks}))
 
+    phase(f"[48] SwinUnet, SMESwinUnet (224x224), SegViT_fKAN, TinyUNet ({ZOO_CMP_HW}x"
+          f"{ZOO_CMP_HW}) at full width, b1, GPU vs CPU; SMESwinUnet's boundary mask")
+    t_zoo2 = time.perf_counter()
+    zoo2_checks = {f"{name}_gpu_vs_cpu_rel": compare_zoo_cpu(name, counters, side, taps)
+                   for name, (_, side, taps) in ZOO2.items()}
+    zoo2_checks["SMESwinUnet_mask_pixels"] = compare_boundary_mask()
+
+    phase(f"[49] the four through accunet_tpu_torch.cli.train on cuda (two epochs at the largest "
+          f"of b{B}, b{B // 2}, b{B // 4} that fits; SwinUnet / SMESwinUnet SGD at 224, "
+          "SegViT_fKAN 224, TinyUNet 256)")
+    zoo2_rates = {}
+    for name in ZOO2:
+        zoo2_launches, zoo2_rates[f"{name}_train_cli"] = run_zoo2_train_cli(counters, name)
+        launches[f"{name.lower()}_train_cli_steps"] = zoo2_launches["train_steps"]
+        launches[f"{name.lower()}_train_cli_validation"] = zoo2_launches["validation"]
+
+    phase(f"[50] the four through accunet_tpu_torch.cli.eval on cuda (b{B}), binary, and "
+          f"SwinUnet with {ZOO_MC_CLASSES} classes")
+    for name, (side, *_) in ZOO2.items():
+        launches[f"{name.lower()}_eval_cli"] = run_eval_cli(counters, name, hw=side,
+                                                            per_forward={})
+    launches["swinunet_mc_eval_cli"] = run_eval_cli(counters, "SwinUnet", ZOO_MC_CLASSES,
+                                                    ZOO2["SwinUnet"][0], per_forward={})
+
+    phase(f"[51] the four's timing (b{B} inference fp32 and bf16, the fp32 train step at the "
+          f"largest of b{B}, b{B // 2}, b{B // 4} that fits)")
+    zoo2_rates.update({name: time_zoo(name, (B, B // 2, B // 4)) for name in ZOO2})
+    phase.end()
+    log(f"  phases 48-51 took {time.perf_counter() - t_zoo2:.1f} s")
+    log("  " + json.dumps({"card": card, "zoo2": zoo2_rates, "zoo2_checks": zoo2_checks}))
+
     # the shapes whose times the kernels line lists per kernel
     by_shape = {"hanc_block": ("cnv12", "cnv22", "cnv81", "cnv91"),
                 "respath_level": ("rspth1.level0", "rspth1.level1", "rspth2.level1"),
@@ -3489,7 +3593,8 @@ def main() -> int:
     # wgrad, the Segmamba checkpoint's eval) are in `launches_by_path` too;
     # the fused kernels' `by_shape` adds KNUnet's "knunet.up1-3", the wgrad's
     # U-KAN's "ukan.*" maps. Phases 44-45's paths (the UNet baselines' train
-    # and eval CLIs) launch no kernel: `launches_by_path` holds their zeros
+    # and eval CLIs) and 49-50's (SwinUnet, SMESwinUnet, SegViT_fKAN,
+    # TinyUNet) launch no kernel: `launches_by_path` holds their zeros
     meta = {
         "hanc_block": ("accunet_tpu_torch/csrc/hanc_block.cu",
                        "accunet_tpu/ops/pallas/hanc_block.py:335", "eval_cli"),
