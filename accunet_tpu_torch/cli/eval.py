@@ -5,7 +5,7 @@
         [--torch-ckpt best_model-ACC_UNet.pth.tar] [--csv out.csv] [--device cuda]
 
 Any segmentation model of the registry evaluates the same way (`--model
-UNext`, `KNUnet`, `UKAN`, the ported UNext_CMRF names, `UNet_base`, `Unetpp`,
+UNext`, `KNUnet`, `UKAN`, the 23 UNext_CMRF names, `UNet_base`, `Unetpp`,
 `MultiResUnet`, `UCTransNet` with --img-size 224, the TransUNet names and
 SegViT_fKAN, built at the image size, `SwinUnet` and `SMESwinUnet` at 224,
 `TinyUNet`, ...), built by `models.build_for` as every CLI builds it: a

@@ -8,9 +8,11 @@
 `--model Segmamba` trains the SegMamba baseline (built with in_chans /
 out_chans, as the JAX CLI builds SegMamba models; binary Dice+BCE at 224 by
 the config). `--model UNext` (UNeXt, BASELINE config 3; also UNext_S and the
-ported UNext_CMRF names) trains with weighted Dice+BCE, at 224 for UNext by
-the config; each train step runs the dwconv2d_wgrad kernel once per
-shifted-MLP block. The UNet baselines (`UNet_base`, `Unetpp`, `MultiResUnet`
+23 UNext_CMRF names) trains with weighted Dice+BCE, at 224 for UNext by the
+config (256 for the UNext_CMRF names, as in JAX); each train step runs the
+dwconv2d_wgrad kernel once per shifted-MLP block (4 a step), three times per
+rKAN block for UNext_CMRF_GS_Wavelet_rKAN (12 a step); no validation forward
+runs it. The UNet baselines (`UNet_base`, `Unetpp`, `MultiResUnet`
 and its 'MultiResUnet1_<nfilt>_<alpha>' names, `UCTransNet`, the four TransUNet
 names) train with weighted Dice+BCE and run no hand-written kernel; a
 TransUNet name is built at the image size, whose grid sizes its position

@@ -1,8 +1,7 @@
 """Model registry of the port, under the JAX package's registry names
 (accunet_tpu/models/__init__.py): the ACC-UNet family, all 26 SegMamba
 names (the baseline, the hybrid ladder and the text-conditioned and
-Spatial-Mamba variants), UNeXt, the UNext_CMRF family (whose unported
-variants raise NotImplementedError when built), MedMamba, the SpatialMamba
+Spatial-Mamba variants), UNeXt, all 23 UNext_CMRF names, MedMamba, the SpatialMamba
 classifier, KNUnet (KMUNet), U-KAN, and the ACC-UNet paper's UNet baselines:
 UNet_base, Unetpp, MultiResUnet (and the reference's
 'MultiResUnet1_<nfilt>_<alpha>' names), UCTransNet and the four TransUNet
@@ -33,7 +32,7 @@ from accunet_tpu_torch.models.segmamba import VARIANTS as _SEGMAMBA_VARIANTS
 from accunet_tpu_torch.models.segmamba import SegMamba, build_segmamba
 from accunet_tpu_torch.models.unext import UNext, UNext_S
 from accunet_tpu_torch.models.unext_cmrf import VARIANTS as _CMRF_VARIANTS
-from accunet_tpu_torch.models.unext_cmrf import build_unext_cmrf
+from accunet_tpu_torch.models.unext_cmrf import UNextCMRF, build_unext_cmrf
 from accunet_tpu_torch.models.seg_fvit import SegViTfKAN
 from accunet_tpu_torch.models.sme_swin_unet import SMESwinUnet
 from accunet_tpu_torch.models.swin_unet import SwinUnet, WindowAttention
@@ -45,7 +44,13 @@ from accunet_tpu_torch.models.unet import UNetBase
 from accunet_tpu_torch.models.unetpp import UNetPlusPlus
 from accunet_tpu_torch.nn.acc_blocks import MLFC
 from accunet_tpu_torch.nn.attention import TGDC, MDTAAttention, TorchMultiheadAttention
-from accunet_tpu_torch.nn.kan import FractionalJacobiNeuralBlock, KANLinear
+from accunet_tpu_torch.nn.cmrf_blocks import GHPA, AdaptiveWaveletPool2d, ODConv2d
+from accunet_tpu_torch.nn.kan import (
+    FractionalJacobiNeuralBlock,
+    JacobiRKAN,
+    KANLinear,
+    PadeRKAN,
+)
 from accunet_tpu_torch.nn.ss2d import SS2D
 from accunet_tpu_torch.nn.ssm import (
     BiMamba,
@@ -172,7 +177,12 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
     xavier-uniform with a zero in_proj_bias; the window attention's
     relative-position table normal(0.02). The UNet baselines': StdConv's raw
     kernel lecun-normal (as a conv), GroupNorm scale one / shift zero, the
-    position embeddings of UCTransNet, TransUNet and SegViT_fKAN zero.
+    position embeddings of UCTransNet, TransUNet and SegViT_fKAN zero. The
+    UNext_CMRF family's: ODConv2d's raw 5-D weight he-normal (truncated at 2
+    sigma) with flax's fan-in of a 5-D parameter, the product of all but its
+    last axis (Kn * O * I/g * k); ChannelsFirstLN (a LayerNorm) one / zero;
+    the rational KAN bases' alpha, beta, iota and w one, zeta zero; GHPA's
+    grids one; the adaptive wavelet filters Haar.
     Draws come from `generator` in module order."""
     for mod in model.modules():
         if isinstance(mod, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
@@ -214,6 +224,12 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
             mod.alpha.fill_(1.0)
             mod.beta.fill_(1.0)
             mod.gamma.zero_()
+        elif isinstance(mod, ODConv2d):
+            w = mod.weight
+            std = math.sqrt(2.0 / math.prod(w.shape[:-1])) / 0.87962566103423978
+            nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
+        elif isinstance(mod, (JacobiRKAN, PadeRKAN, GHPA, AdaptiveWaveletPool2d)):
+            mod.reset_parameters()
         elif isinstance(mod, (ChannelEmbeddings, TransUNet, SegViTfKAN)):
             mod.position_embeddings.zero_()
         elif isinstance(mod, (nn.BatchNorm2d, nn.LayerNorm, GroupNorm)):
@@ -226,6 +242,7 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
 __all__ = ["ACCUNet", "ACC_UNet", "ACC_UNet_Lite", "ACC_UNet_W", "Backbone_SpatialMamba",
            "INPUT_SIZED", "IN_OUT_CHANS", "KMUNet", "MultiResUnet", "SEGMAMBA_NAMES",
            "SMESwinUnet", "SegMamba", "SegViTfKAN", "SpatialMamba", "SwinUnet", "TinyUNet",
-           "TransUNet", "UCTransNet", "UKAN", "UNetBase", "UNetPlusPlus", "UNext", "UNext_S",
+           "TransUNet", "UCTransNet", "UKAN", "UNetBase", "UNetPlusPlus", "UNext", "UNextCMRF",
+           "UNext_S",
            "VSSM", "build", "build_for", "build_segmamba", "build_unext_cmrf",
            "init_parameters", "registry", "takes_dtype"]

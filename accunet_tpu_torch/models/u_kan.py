@@ -14,7 +14,8 @@ counterpart of accunet_tpu/models/u_kan.py (`DWBnRelu`, `KANLayer`,
         reference)
     KANBlock: x + KANLayer(LayerNorm(x)); KANLayer: three SiLU KANLinears
         fc1-fc3 over the tokens, each followed by DWBnRelu (a 3x3 depthwise
-        conv with bias, BN, ReLU)
+        conv with bias, BN, ReLU); `base_activation` 'rkan' gives the
+        JacobiRKAN-based KANLinears of UNext_CMRF_GS_Wavelet_rKAN's blocks
 
 Each DWBnRelu's depthwise conv takes its weight and bias gradient from the
 `dwconv2d_wgrad` kernel (ops/conv.py:depthwise_conv2d), so a train step
@@ -52,10 +53,10 @@ class DWBnRelu(nn.Module):
 
 
 class KANLayer(nn.Module):
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, base_activation: str = "silu"):
         super().__init__()
         for i in (1, 2, 3):
-            setattr(self, f"fc{i}", KANLinear(dim, dim, base_activation="silu"))
+            setattr(self, f"fc{i}", KANLinear(dim, dim, base_activation=base_activation))
             setattr(self, f"dwconv_{i}", DWBnRelu(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -67,10 +68,10 @@ class KANLayer(nn.Module):
 
 
 class KANBlock(nn.Module):
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, base_activation: str = "silu"):
         super().__init__()
         self.norm2 = LayerNorm(dim, eps=1e-5)
-        self.layer = KANLayer(dim)
+        self.layer = KANLayer(dim, base_activation)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x + self.layer(self.norm2(x))

@@ -40,12 +40,12 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = No
 
 
 def conv2d_strided(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None,
-                   stride=1, padding=0, groups: int = 1) -> torch.Tensor:
-    """nn.Conv2d(stride, padding, groups) on NHWC, its weight and bias cast
-    to x's type: symmetric zero padding, so a patchify conv (kernel =
-    stride, padding 0) is flax's VALID one."""
+                   stride=1, padding=0, groups: int = 1, dilation=1) -> torch.Tensor:
+    """nn.Conv2d(stride, padding, groups, dilation) on NHWC, its weight and
+    bias cast to x's type: symmetric zero padding, so a patchify conv
+    (kernel = stride, padding 0) is flax's VALID one."""
     y = F.conv2d(x.permute(0, 3, 1, 2), weight.to(x.dtype),
-                 None if bias is None else bias.to(x.dtype), stride, padding, groups=groups)
+                 None if bias is None else bias.to(x.dtype), stride, padding, dilation, groups)
     return y.permute(0, 2, 3, 1)
 
 
@@ -79,6 +79,25 @@ def depthwise_conv2d(x: torch.Tensor, weight: torch.Tensor,
     """Depthwise 'SAME' convolution, odd kernels. weight (C, 1, kh, kw). Its
     weight gradient is the `dwconv2d_wgrad` kernel (ops/kernels/dwconv2d)."""
     return DepthwiseConv2dFn.apply(x, weight, bias)
+
+
+def dilated_depthwise_conv2d(x: torch.Tensor, weight: torch.Tensor,
+                             bias: torch.Tensor | None = None,
+                             dilation: int = 1) -> torch.Tensor:
+    """Depthwise 'SAME' convolution with an odd k x k kernel dilated by
+    `dilation` (padding dilation * (k // 2)): nn.Conv2d(dilation=,
+    groups=C) on NHWC; weight (C, 1, k, k). It refuses a bf16 weight
+    gradient on the CPU at dilation > 1: torch 2.13's is wrong (off by more
+    than the gradient's size at dilation 2 on a 32x32 map, ~1e36 at 5),
+    while its bf16 forward and input gradient, its fp32 weight gradient and
+    CUDA's bf16 one are right."""
+    if (dilation > 1 and x.device.type == "cpu" and x.dtype == torch.bfloat16
+            and torch.is_grad_enabled() and weight.requires_grad):
+        raise NotImplementedError(
+            "the weight gradient of a dilated bf16 depthwise conv on the CPU (torch's is wrong): "
+            "train in float32 on the CPU, or in bfloat16 on the card")
+    k = weight.shape[-1]
+    return conv2d_strided(x, weight, bias, 1, dilation * (k // 2), x.shape[-1], dilation)
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor,

@@ -212,7 +212,22 @@ From the root of a checkout, with one CUDA device:
      each, no port kernel) and SwinUnet with 3 classes (4 logits);
  51. times each one's b8 inference in fp32 and bf16 and its fp32 train step
      at the largest of b8, b4, b2 that fits, with peak memory. Phases 48-51
-     print their seconds.
+     print their seconds;
+ 52. builds the last 16 UNext_CMRF names at full width (the OD, BS and BSRB
+     encoders, the CSSE, GS and GAB skips, the Haar wavelet pool, rKAN token
+     blocks; 15 distinct forwards, _GS_Wavelet_hd being _GS_Wavelet's) and
+     compares each, b1 64x64 fp32, GPU vs CPU (logits and module outputs,
+     rel <= 1e-3), with no port kernel launched;
+ 53. runs the train entry point with UNext_CMRF_GAB_wavelet_OD (fp32 and
+     bf16) and UNext_CMRF_GS_Wavelet_rKAN at 224x224, batch 8, for two
+     epochs and checks dwconv2d_wgrad's launches (4 a step, 12 for rKAN, 0 a
+     validation forward); both through the eval entry point (no launch);
+     the GAB's dilated depthwise convs in bf16 vs fp32 on the card (output
+     and gradients, at the four GABs' maps and each dilation);
+ 54. times _enc_CSSE, _GAB_wavelet_OD, _BSRB_GS, _BS_GS_Wavelet and
+     _GS_Wavelet_rKAN: b8 224x224 inference in fp32 and bf16 and the fp32
+     train step with its peak memory and launches. Phases 52-54 print their
+     seconds.
 Phases print their seconds. It prints a JSON line of the kernels (the
 launches of every path, the new ones too), then as its last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -3176,6 +3191,95 @@ def run_zoo2_train_cli(counters, name):
     raise SmokeError(f"{name}: no train CLI batch of {(B, B // 2, B // 4)} fits")
 
 
+# phases 52-54: the last 16 UNext_CMRF names (the OD, BS and BSRB encoders,
+# the CSSE, GS and GAB skips, the Haar wavelet pool, rKAN token blocks). Their
+# one port kernel is dwconv2d_wgrad in the token blocks' depthwise backward:
+# 4 a train step (the ShiftedBlocks) or 12 (_GS_Wavelet_rKAN: 3 DWBnRelus in
+# each of its 4 KANBlocks), at UNext's shapes (phases 19 and 24 hold the
+# kernel there); none in an eval forward. The 15 distinct forwards
+# (_GS_Wavelet_hd is _GS_Wavelet's), the five that cover every new axis, and
+# the two that go through the CLIs
+CMRF_REST = ("UNext_CMRF_enc_CSSE", "UNext_CMRF_GS", "UNext_CMRF_GS_Wavelet",
+             "UNext_CMRF_Wavelet", "UNext_CMRF_GAB", "UNext_CMRF_OD", "UNext_CMRF_BS",
+             "UNext_CMRF_BSRB", "UNext_CMRF_GAB_wavelet", "UNext_CMRF_GAB_wavelet_OD",
+             "UNext_CMRF_GS_Wavelet_OD", "UNext_CMRF_BS_GS_Wavelet", "UNext_CMRF_BSRB_GS",
+             "UNext_CMRF_BSRB_GS_Wavelet", "UNext_CMRF_GS_Wavelet_rKAN")
+CMRF_COVER = ("UNext_CMRF_enc_CSSE", "UNext_CMRF_GAB_wavelet_OD", "UNext_CMRF_BSRB_GS",
+              "UNext_CMRF_BS_GS_Wavelet", "UNext_CMRF_GS_Wavelet_rKAN")
+CMRF_CLI = ("UNext_CMRF_GAB_wavelet_OD", "UNext_CMRF_GS_Wavelet_rKAN")
+RKAN_WGRAD_PER_STEP = 12
+
+
+def cmrf_rest_taps(name):
+    """Module outputs compared GPU vs CPU besides the logits: the stem, the
+    tokens, the last decoder block, and the skip's own modules."""
+    from accunet_tpu_torch.models.unext_cmrf import VARIANTS
+
+    skip = VARIANTS[name].get("skip", "add")
+    return ("encoder3", "norm3", "dnorm4") + {"gs": ("norm4_gs", "sim1"), "gab": ("GAB4", "GAB1"),
+                                              "csse": ("csse1", "csse4")}.get(skip, ())
+
+
+def compare_cmrf_rest(counters):
+    """Phase 52: each of CMRF_REST at full width, b1 64x64, fp32, GPU vs CPU
+    as compare_on_cpu holds it, and no launch of a port kernel in either
+    forward."""
+    errs = {}
+    for name in CMRF_REST:
+        c0 = {k: fn.launches for k, fn in counters.items()}
+        errs[name] = compare_on_cpu(seeded_unext(name), name, CMRF_CMP_HW,
+                                    cmrf_rest_taps(name), 52)
+        got = {k: fn.launches - c0[k] for k, fn in counters.items() if fn.launches != c0[k]}
+        if got:
+            raise SmokeError(f"{name}: its eval forwards launched {got}, expected none")
+    return errs
+
+
+def check_gab_dilated_bf16():
+    """Phase 53: the GAB's dilated depthwise convs (cuDNN's grouped conv with
+    a dilation) in bf16 on the card, at UNext_CMRF_GAB_wavelet_OD b8
+    224x224's four GABs (groups of dim_xl / 2 + 1 channels) and each
+    dilation: the output and the input, weight and bias gradients against
+    the same conv in fp32 on the same bf16-rounded inputs, rel <= BF16_TOL.
+    (torch's CPU weight gradient of such a conv in bf16 is wrong, so the
+    port refuses it there: ops/conv.py.)"""
+    from accunet_tpu_torch.ops.conv import dilated_depthwise_conv2d
+
+    g = torch.Generator("cuda").manual_seed(53)
+    errs = {}
+    for side, c in ((HW // 2, 9), (HW // 4, 17), (HW // 8, 65), (HW // 16, 81)):
+        x, gy = (torch.randn(B, side, side, c, generator=g, device="cuda").bfloat16()
+                 for _ in range(2))
+        w = (0.3 * torch.randn(c, 1, 3, 3, generator=g, device="cuda")).bfloat16()
+        bias = torch.randn(c, generator=g, device="cuda").bfloat16()
+        for d in (1, 2, 5, 7):
+            outs = {}
+            for dt in (torch.float32, torch.bfloat16):
+                xt, wt, bt = (t.detach().to(dt).requires_grad_(True) for t in (x, w, bias))
+                y = dilated_depthwise_conv2d(xt, wt, bt, d)
+                y.backward(gy.to(dt))
+                outs[dt] = tuple(t.detach() for t in (y, xt.grad, wt.grad, bt.grad))
+            errs[f"{side}x{side}x{c}.d{d}"] = max(
+                rel_err(a, b)[1] for a, b in zip(outs[torch.bfloat16], outs[torch.float32]))
+    worst = max(errs.values())
+    log(f"  GAB dilated depthwise convs, bf16 vs fp32 on the card: worst rel {worst:.3e} "
+        f"(tol {BF16_TOL:g}); " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    if worst > BF16_TOL:
+        raise SmokeError("a GAB dilated depthwise conv in bf16 disagrees with fp32 on the card")
+    return errs
+
+
+def cmrf_train_launches(name):
+    """Per train step of `name`: dwconv2d_wgrad 4 times, 12 for the rKAN
+    name; per validation forward nothing."""
+    per_step = RKAN_WGRAD_PER_STEP if name.endswith("rKAN") else 4
+
+    def want(steps, val_batches):
+        zero = dict.fromkeys(KERNELS, 0)
+        return {"train_steps": {**zero, "dwconv2d_wgrad": per_step * steps}, "validation": zero}
+    return want
+
+
 class Phases:
     """Logs each phase's title and, when the next begins (or `end()`), the
     seconds it took."""
@@ -3558,6 +3662,40 @@ def main() -> int:
     log(f"  phases 48-51 took {time.perf_counter() - t_zoo2:.1f} s")
     log("  " + json.dumps({"card": card, "zoo2": zoo2_rates, "zoo2_checks": zoo2_checks}))
 
+    phase(f"[52] the last 16 UNext_CMRF names (15 distinct forwards) at full width, b1 "
+          f"{CMRF_CMP_HW}x{CMRF_CMP_HW}, GPU vs CPU, no kernel launched; {card}")
+    t_cmrf = time.perf_counter()
+    cmrf_checks = compare_cmrf_rest(counters)
+
+    phase(f"[53] {', '.join(CMRF_CLI)} through accunet_tpu_torch.cli.train on cuda ({HW}x{HW}, "
+          f"b{B}, two epochs; the first also in bf16) and accunet_tpu_torch.cli.eval; {card}")
+    cmrf_rates = {}
+    for tag, name, extra in (("gab_wavelet_od", CMRF_CLI[0], ()),
+                             ("gs_wavelet_rkan", CMRF_CLI[1], ()),
+                             ("gab_wavelet_od_bf16", CMRF_CLI[0], BF16_SET)):
+        timing = {}
+        cm_launches = run_train_cli(counters, name, cmrf_train_launches(name), extra,
+                                    timing=timing, resume=False)
+        launches[f"cmrf_{tag}_train_cli_steps"] = cm_launches["train_steps"]
+        launches[f"cmrf_{tag}_train_cli_validation"] = cm_launches["validation"]
+        cmrf_rates[f"{tag}_train_cli"] = timing
+    for name in CMRF_CLI:
+        launches[f"{name.lower()}_eval_cli"] = run_eval_cli(counters, name, per_forward={})
+    cmrf_checks["gab_dilated_bf16_rel"] = check_gab_dilated_bf16()
+
+    phase(f"[54] timing, b{B} {HW}x{HW}: {', '.join(CMRF_COVER)} (inference fp32 and bf16, the "
+          f"fp32 train step with its peak memory and launches); {card}")
+    for name in CMRF_COVER:
+        mdl = seeded_unext(name)
+        cmrf_rates[name] = {"inference": time_model(mdl, name),
+                            "train_step_fp32": time_train_step(
+                                mdl, name, {"dwconv2d_wgrad": dwconv2d_wgrad})}
+        del mdl
+        gc_cuda()
+    phase.end()
+    log(f"  phases 52-54 took {time.perf_counter() - t_cmrf:.1f} s")
+    log("  " + json.dumps({"card": card, "cmrf_rest": cmrf_rates, "cmrf_rest_checks": cmrf_checks}))
+
     # the shapes whose times the kernels line lists per kernel
     by_shape = {"hanc_block": ("cnv12", "cnv22", "cnv81", "cnv91"),
                 "respath_level": ("rspth1.level0", "rspth1.level1", "rspth2.level1"),
@@ -3594,7 +3732,11 @@ def main() -> int:
     # the fused kernels' `by_shape` adds KNUnet's "knunet.up1-3", the wgrad's
     # U-KAN's "ukan.*" maps. Phases 44-45's paths (the UNet baselines' train
     # and eval CLIs) and 49-50's (SwinUnet, SMESwinUnet, SegViT_fKAN,
-    # TinyUNet) launch no kernel: `launches_by_path` holds their zeros
+    # TinyUNet) launch no kernel: `launches_by_path` holds their zeros.
+    # Phase 53's paths (UNext_CMRF_GAB_wavelet_OD in fp32 and bf16 and
+    # UNext_CMRF_GS_Wavelet_rKAN through the train CLI: the wgrad 4 and 12
+    # times a step; both through the eval CLI: none) are in
+    # `launches_by_path` too
     meta = {
         "hanc_block": ("accunet_tpu_torch/csrc/hanc_block.cu",
                        "accunet_tpu/ops/pallas/hanc_block.py:335", "eval_cli"),

@@ -2,8 +2,8 @@
 on the CPU.
 
   * KANLinear(base_activation='silu') against JAX's (no base-activation
-    parameter); 'rkan' and 'pade' raise NotImplementedError naming Queue 1
-    item 7;
+    parameter); the rational bases 'rkan' (JacobiRKAN) and 'pade'
+    (PadeRKAN) against JAX's, with their parameters under base_activation;
   * the KAN_SCA bridge alone, on four maps of 8-64 channels;
   * VSSLayerUp at depth 3: the output, and the gradients of its inputs and
     parameters against jax.vjp; the two blocks whose outputs the reference
@@ -47,6 +47,7 @@ from tests.test_torch_unext import _one_torch_thread  # noqa: F401
 # spans 2 channels and JAX's own fp32 output sits 2.5e-3 from float64, so the
 # test runs the published widths.
 WHOLE_TOL = 1e-4
+PADE_TOL = 1e-4
 HIDDEN = (64, 128, 256, 512)
 DEPTHS = (1, 2, 1, 2)
 
@@ -60,10 +61,37 @@ def test_kan_linear_silu_matches_jax():
     assert names == {"base_weight", "spline_weight", "spline_scaler"}
 
 
+def rational_base_params(tree, seed=3):
+    """A rational base's parameters near their initial values: 1 + 0.1 z,
+    zeta 0.1 z."""
+    rs = np.random.RandomState(seed)
+    return {k: np.float32(0.0 if k.startswith("zeta") else 1.0)
+            + 0.1 * rs.standard_normal(a.shape).astype(np.float32) for k, a in tree.items()}
+
+
 @pytest.mark.parametrize("base", ["rkan", "pade"])
 def test_kan_linear_rational_bases_wait_for_item_7(base):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TK.KANLinear(4, 4, base_activation=base)
+    """The rational bases, once Queue 1 item 7's wait ended: KANLinear(12,
+    7) with each against JAX's. The base's parameters are drawn around their
+    initial values (1 + 0.1 z; zeta 0.1 z), where PadeRKAN's denominator
+    stays away from 0. PADE_TOL: PadeRKAN's degree-5 Jacobi terms cancel in
+    fp32, where each side's base sits 5-8e-4 from its float64 value and the
+    two 1.4e-5 apart here (tests/test_torch_unext_cmrf_rest.py holds the
+    bases alone to float64)."""
+    x = 1.5 * _x((10, 12))
+    jmod = JK.KANLinear(12, 7, base_activation=base)
+    v = _variables(jmod, x)
+    v["params"]["base_activation"] = rational_base_params(v["params"]["base_activation"])
+    want = jax_run(lambda vv, xx: jmod.apply(vv, xx), v, jnp.asarray(x))
+    with torch.no_grad():
+        got = _port(TK.KANLinear(12, 7, base_activation=base), v)(torch.from_numpy(x))
+    assert got.shape == (10, 7) and _rel(got.numpy(), want) <= (TOL if base == "rkan"
+                                                                 else PADE_TOL)
+    names = {n for n, _ in TK.KANLinear(12, 7, base_activation=base).named_parameters()}
+    want_names = {"alpha", "beta", "iota"} if base == "rkan" else {
+        f"{p}_{side}" for p in ("alpha", "beta", "zeta", "w") for side in "pq"}
+    assert names == {"base_weight", "spline_weight", "spline_scaler"} | {
+        f"base_activation.{n}" for n in want_names}
 
 
 def test_kan_sca_bridge_matches_jax():

@@ -10,8 +10,9 @@
   * UNext_S in eval mode at 32x32 and at 48x48 (ragged skips, resized with
     align_corners=True; the output is 64x64); UNext at full width, 32x32, in
     eval mode and in a train-mode forward with its BN statistics;
-  * the registry names, the initialisers, and the train CLI for one tiny
-    UNext_S epoch.
+  * the registry names (all 23 UNext_CMRF names with their JAX parameter
+    counts), the initialisers (the new blocks' too), and the train CLI for
+    one tiny UNext_S epoch.
 
 Weights: a seeded numpy tree shaped by `jax.eval_shape` of the JAX init
 (nothing compiles for it), loaded into the port by `state_dict_from_jax`
@@ -38,6 +39,7 @@ from accunet_tpu.nn import unext_blocks as JB
 from accunet_tpu.ops import resize as JR
 from accunet_tpu_torch.models import UNext, UNext_S, build, init_parameters
 from accunet_tpu_torch.nn import cmrf_blocks as TC
+from accunet_tpu_torch.nn import kan as TK
 from accunet_tpu_torch.nn import unext_blocks as TB
 from accunet_tpu_torch.nn.acc_blocks import BatchNorm
 from accunet_tpu_torch.ops import resize as TR
@@ -263,27 +265,40 @@ def test_unext_matches_jax():
 
 
 def test_registry_names_build():
-    """UNext, UNeXt, UNext_S and the seven plain-CMRF names build with the
-    JAX parameter counts; the other CMRF names raise NotImplementedError
-    naming the ROADMAP item."""
+    """UNext, UNeXt, UNext_S and all 23 UNext_CMRF names build, through
+    models.build and models.build_for, with the JAX parameter counts (JAX's
+    init shapes at 224x224, 3 channels, 1 class)."""
+    from accunet_tpu_torch.models import build_for
+    from accunet_tpu_torch.models.unext_cmrf import VARIANTS, UNextCMRF
+
+    gs = 1744674  # _GS, _GS_Wavelet, _GS_Wavelet_hd
     counts = {"UNext": 1471921, "UNeXt": 1471921, "UNext_S": 253561,
               "UNext_CMRF": 1440146, "UNext_CMRF_PP": 1440146, "UNext_CMRF_hd": 1440146,
               "UNext_CMRF_enc_dec": 1398038, "UNext_CMRF_enc_MLFC": 1678528,
-              "UNext_CMRF_enc_dec_MLFC": 1636420, "UNext_CMRF_dense_skip": 1901426}
+              "UNext_CMRF_enc_dec_MLFC": 1636420, "UNext_CMRF_dense_skip": 1901426,
+              "UNext_CMRF_enc_CSSE": 1484254, "UNext_CMRF_GS": gs, "UNext_CMRF_GS_Wavelet": gs,
+              "UNext_CMRF_GS_Wavelet_hd": gs, "UNext_CMRF_Wavelet": 1440146,
+              "UNext_CMRF_GAB": 1604710, "UNext_CMRF_GAB_wavelet": 1604710,
+              "UNext_CMRF_OD": 1454717, "UNext_CMRF_BS": 1440552, "UNext_CMRF_BSRB": 1440552,
+              "UNext_CMRF_GAB_wavelet_OD": 1619281, "UNext_CMRF_GS_Wavelet_OD": 1759245,
+              "UNext_CMRF_BS_GS_Wavelet": 1745080, "UNext_CMRF_BSRB_GS": 1745080,
+              "UNext_CMRF_BSRB_GS_Wavelet": 1745080, "UNext_CMRF_GS_Wavelet_rKAN": 5488966}
+    assert set(VARIANTS) <= set(counts) and len(VARIANTS) == 23
     for name, n in counts.items():
-        model = build(name, n_channels=3, n_classes=1)
-        assert sum(p.numel() for p in model.parameters()) == n, name
-    for name in ("UNext_CMRF_GS", "UNext_CMRF_enc_CSSE", "UNext_CMRF_Wavelet",
-                 "UNext_CMRF_GAB", "UNext_CMRF_OD", "UNext_CMRF_BS", "UNext_CMRF_BSRB",
-                 "UNext_CMRF_GS_Wavelet_rKAN"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-            build(name, n_channels=3, n_classes=1)
+        for model in (build(name, n_channels=3, n_classes=1), build_for(name, 224, 3, 1)):
+            assert isinstance(model, UNextCMRF)
+            assert sum(p.numel() for p in model.parameters()) == n, name
 
 
 def test_unext_init_follows_jax_initialisers():
     """init_parameters on UNext: LayerNorms (1, 0), biases 0, the token
     MLP's Dense and depthwise kernels lecun-normal (truncated at 2 sigma of
-    their fan-in), the same draws for the same seed."""
+    their fan-in), the same draws for the same seed. On an ODConv2d (kernel
+    num 4, 3x3): its raw 5-D weight he-normal with flax's fan-in of a 5-D
+    shape, Kn * O * (I/g) * k = 4 * 32 * 16 * 3 (not torch's O * I/g * k *
+    k), truncated at 2 sigma; a UNext_CMRF_GAB's ChannelsFirstLNs (1, 0);
+    the rKAN bases' alpha, beta, iota one; PadeRKAN's zeta zero, the rest
+    one; GHPA's grids one; the adaptive wavelet pool's filters Haar."""
     m1 = init_parameters(UNext_S(3, 1), torch.Generator().manual_seed(3))
     m2 = init_parameters(UNext_S(3, 1), torch.Generator().manual_seed(3))
     for (n1, p1), (_, p2) in zip(m1.state_dict().items(), m2.state_dict().items()):
@@ -294,6 +309,27 @@ def test_unext_init_follows_jax_initialisers():
     for lin, fan_in in ((blk.mlp.fc1, 64), (blk.mlp.dwconv.dwconv, 9)):
         cut = 2 * math.sqrt(1 / fan_in) / 0.87962566103423978
         assert not lin.bias.any() and 0 < float(lin.weight.detach().abs().max()) <= cut
+
+    g = torch.Generator().manual_seed(4)
+    od = init_parameters(TC.ODConv2d(16, 32, 3, kernel_num=4), g).weight.detach()
+    std = math.sqrt(2 / (4 * 32 * 16 * 3))  # the he-normal's, after the cut's correction
+    assert abs(float(od.std()) / std - 1) < 0.03
+    assert float(od.abs().max()) <= 2 * std / 0.87962566103423978
+    gab = init_parameters(build("UNext_CMRF_GAB", n_channels=3, n_classes=1), g)
+    ln = gab.GAB1.g3_ln
+    assert torch.equal(ln.weight, torch.ones_like(ln.weight)) and not ln.bias.any()
+    blocks = (TK.JacobiRKAN(), TK.PadeRKAN(), TC.GHPA(16, 16), TC.AdaptiveWaveletPool2d())
+    for blk in blocks:
+        for p in blk.parameters():
+            p.data.normal_()
+    rk, pade, ghpa, wav = (init_parameters(b, g) for b in blocks)
+    assert all(float(p) == 1 for p in rk.parameters())
+    for name, p in pade.named_parameters():
+        assert torch.equal(p, torch.full_like(p, 0.0 if name.startswith("zeta") else 1.0)), name
+    assert all(torch.equal(p, torch.ones_like(p)) for p in (ghpa.params_xy, ghpa.params_zx))
+    r = 2 ** -0.5
+    assert torch.allclose(wav.dec_lo, torch.tensor([r, r]))
+    assert torch.allclose(wav.dec_hi, torch.tensor([r, -r]))
 
 
 def test_unext_train_cli_cpu(tmp_path):
