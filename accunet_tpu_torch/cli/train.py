@@ -4,6 +4,8 @@
         --train-dir /data/ISIC18/Train_Folder --val-dir /data/ISIC18/Val_Folder \
         [--n-classes 9] [--resume auto --ckpt-dir ckpt] [--device cuda] \
         [--set train.lr=3e-4 data.batch_size=16 ...]
+    torchrun --nproc-per-node 4 -m accunet_tpu_torch.cli.train --distributed \
+        --mesh data=4 ...    (or data=2,model=2; one process a card)
 
 `--model Segmamba` trains the SegMamba baseline (built with in_chans /
 out_chans, as the JAX CLI builds SegMamba models; binary Dice+BCE at 224 by
@@ -36,6 +38,21 @@ dwconv2d_wgrad run their bf16 paths. SegMamba models train in fp32 under
 either setting, as JAX builds them without a dtype; the run logs one line
 saying so. `--vis-dir` saves the first validation batch's input, mask and
 prediction images every `--vis-frequency` epochs.
+
+Scale-out (JAX's --mesh / --distributed): `--distributed` initialises
+torch.distributed from torchrun's environment (RANK, WORLD_SIZE,
+LOCAL_RANK, MASTER_ADDR / MASTER_PORT), `--distributed ADDR:PORT,RANK,WORLD`
+over tcp://ADDR:PORT; NCCL for cuda (each rank on cuda:LOCAL_RANK, or
+cuda:RANK without LOCAL_RANK), gloo for --device cpu. `--mesh
+data=D,model=M,seq=S` (D*M*S = the world size; data=-1 takes the rest)
+places the step on the mesh (train/engine.py): each rank loads its data
+slice of every global batch (data.batch_size is the global batch), the step
+equals one process's on the global batch, and rank 0 alone logs and writes
+checkpoints, which are a one-process run's file and load under any mesh or
+none. `--distributed` without `--mesh` is refused: JAX's CLI then trains a
+separate copy in each process on its own slice with no exchange (ROADMAP
+Queue 3). The CLI never enters sequence_sharding, as JAX's never does: a seq
+axis replicates the step, and parallel/seq_scan.py's tests drive it.
 
 Text prompts, with JAX's rule: a model of TEXT_MODELS (or any model with
 `--text`) reads the prompt file of --train-dir and --val-dir
@@ -103,6 +120,42 @@ def write_synthetic(root: str, size: int, n_classes: int) -> tuple[str, str]:
     return os.path.join(root, "train"), os.path.join(root, "val")
 
 
+def parse_mesh(spec: str):
+    """'data=4,model=2' -> MeshSpec(data=4, model=2)."""
+    from accunet_tpu_torch.parallel.mesh import MeshSpec
+
+    kw = {}
+    for part in spec.split(","):
+        k, v = part.split("=")
+        kw[k.strip()] = int(v)
+    return MeshSpec(**kw)
+
+
+def init_distributed(spec: str, device):
+    """Initialise the default process group from torchrun's environment
+    (spec 'env') or from 'ADDR:PORT,RANK,WORLD', and return the rank's
+    device: NCCL for cuda, the rank bound to cuda:LOCAL_RANK (else
+    cuda:RANK) unless `device` names a card; gloo for the CPU."""
+    import torch
+    import torch.distributed as dist
+
+    if spec == "env":
+        rank, kw = int(os.environ.get("RANK", 0)), {}
+    else:
+        addr, rank, world = spec.rsplit(",", 2)
+        rank = int(rank)
+        kw = dict(init_method=f"tcp://{addr}", rank=rank, world_size=int(world))
+    if device.type == "cuda":
+        if device.index is None:
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", rank)))
+        if device.index >= torch.cuda.device_count():
+            raise RuntimeError(f"rank {rank}: {device} does not exist "
+                               f"({torch.cuda.device_count()} CUDA devices)")
+        torch.cuda.set_device(device)
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo", **kw)
+    return device
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", default="ACC_UNet")
@@ -135,8 +188,32 @@ def main(argv=None):
     ap.add_argument("--set", nargs="*", default=[], help="dotted config overrides")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--device", default="cuda", help="torch device, e.g. cuda, cuda:1, cpu")
+    ap.add_argument("--mesh", default=None,
+                    help="mesh of the ranks, e.g. data=4 or data=2,model=2 (more than one rank "
+                         "needs --distributed)")
+    ap.add_argument("--distributed", nargs="?", const="env", default=None,
+                    help="start torch.distributed: from torchrun's environment with no value, "
+                         "or 'ADDR:PORT,RANK,WORLD'")
     args = ap.parse_args(argv)
+    if args.distributed and not args.mesh:
+        ap.error("--distributed needs --mesh, e.g. --mesh data=N for N ranks: without one each "
+                 "rank would train its own copy on its own data slice, with no exchange")
 
+    import torch
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {args.device}: CUDA is not available")
+    if args.distributed:
+        device = init_distributed(args.distributed, device)
+    try:
+        return _train(args, ap, device)
+    finally:
+        if args.distributed:
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, ap, device):
     import numpy as np
     import torch
 
@@ -145,15 +222,22 @@ def main(argv=None):
     from accunet_tpu_torch.data.loader import BatchLoader, PrefetchLoader
     from accunet_tpu_torch.data.transforms import RandomGenerator, ValGenerator
     from accunet_tpu_torch.models import build_for, init_parameters, takes_dtype
+    from accunet_tpu_torch.parallel.mesh import make_mesh
     from accunet_tpu_torch.train import losses as L
     from accunet_tpu_torch.train import metrics as M
     from accunet_tpu_torch.train.engine import (
         RESTORE_ERRORS, fit, list_checkpoints, make_train_fns, restore_checkpoint,
     )
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device}: CUDA is not available")
+    mesh = make_mesh(parse_mesh(args.mesh)) if args.mesh else None
+    logging.basicConfig(level=logging.INFO, format="%(message)s")
+    if mesh is not None:
+        logging.info("mesh %s: rank %d of %d at %s on %s", mesh.shape, mesh.rank,
+                     mesh.shape["data"] * mesh.shape["model"] * mesh.shape["seq"], mesh.coords,
+                     device)
+        if not mesh.is_chief:  # rank 0 alone logs
+            logging.getLogger().setLevel(logging.WARNING)
+    data_index, data_count = (0, 1) if mesh is None else (mesh.coords["data"], mesh.shape["data"])
 
     synth_dir = None
     if args.synthetic:
@@ -179,7 +263,6 @@ def main(argv=None):
     if compute_dtype is None:
         raise ValueError(f"train.compute_dtype={cfg.train.compute_dtype!r}: float32 or bfloat16")
 
-    logging.basicConfig(level=logging.INFO, format="%(message)s")
     np.random.seed(cfg.train.seed)
 
     binarize = args.n_classes == 1  # multi-class keeps integer label ids
@@ -197,9 +280,11 @@ def main(argv=None):
     train_loader = PrefetchLoader(BatchLoader(
         train_ds, cfg.data.batch_size, RandomGenerator(hw), shuffle=True,
         seed=cfg.train.seed, drop_last=True,
+        process_index=data_index, process_count=data_count,
     ))
     val_loader = PrefetchLoader(BatchLoader(val_ds, cfg.data.batch_size, ValGenerator(hw),
-                                            pad_last=True))
+                                            pad_last=True, process_index=data_index,
+                                            process_count=data_count))
 
     use_text = args.text or args.model in TEXT_MODELS
     text_encoder = train_text = val_text = None
@@ -245,14 +330,20 @@ def main(argv=None):
     fns = make_train_fns(
         model, loss_fn=loss_fn, learning_rate=cfg.train.lr,
         optimizer_name=cfg.train.optimizer, steps_per_epoch=max(len(train_loader), 1),
-        dice_show=dice_show, iou_fn=iou_fn,
+        dice_show=dice_show, iou_fn=iou_fn, mesh=mesh,
     )
     meta = None
     if args.resume == "auto":
         # the newest checkpoint that restores; a corrupt one falls back to
         # the next-newest, none at all is a fresh run
         args.resume = None
-        for path in reversed(list_checkpoints(cfg.train.ckpt_dir)):
+        candidates = list_checkpoints(cfg.train.ckpt_dir)
+        if mesh is not None and torch.distributed.is_initialized():
+            # every rank tries rank 0's list, so all restore the same file
+            box = [candidates]
+            torch.distributed.broadcast_object_list(box, src=0)
+            candidates = box[0]
+        for path in reversed(candidates):
             try:
                 _, meta = restore_checkpoint(path, fns.state)
             except RESTORE_ERRORS as e:

@@ -1,7 +1,8 @@
 """Model registry of the port, under the JAX package's registry names
 (accunet_tpu/models/__init__.py): the ACC-UNet family, all 26 SegMamba
 names (the baseline, the hybrid ladder and the text-conditioned and
-Spatial-Mamba variants), UNeXt, all 23 UNext_CMRF names, MedMamba, the SpatialMamba
+Spatial-Mamba variants), UNeXt, all 23 UNext_CMRF names,
+UNext_InceptionNext_MLFC (and _fKAN), MedMamba, the SpatialMamba
 classifier, KNUnet (KMUNet), U-KAN, and the ACC-UNet paper's UNet baselines:
 UNet_base, Unetpp, MultiResUnet (and the reference's
 'MultiResUnet1_<nfilt>_<alpha>' names), UCTransNet and the four TransUNet
@@ -33,6 +34,7 @@ from accunet_tpu_torch.models.segmamba import SegMamba, build_segmamba
 from accunet_tpu_torch.models.unext import UNext, UNext_S
 from accunet_tpu_torch.models.unext_cmrf import VARIANTS as _CMRF_VARIANTS
 from accunet_tpu_torch.models.unext_cmrf import UNextCMRF, build_unext_cmrf
+from accunet_tpu_torch.models.unext_inceptionnext import UNextInceptionNextMLFC
 from accunet_tpu_torch.models.seg_fvit import SegViTfKAN
 from accunet_tpu_torch.models.sme_swin_unet import SMESwinUnet
 from accunet_tpu_torch.models.swin_unet import SwinUnet, WindowAttention
@@ -73,6 +75,9 @@ registry: Dict[str, Callable] = {
     "UNeXt": UNext,  # the reference factory's spelling
     "UNext_S": UNext_S,
     **{name: functools.partial(build_unext_cmrf, name) for name in _CMRF_VARIANTS},
+    "UNext_InceptionNext_MLFC": UNextInceptionNextMLFC,
+    # JAX's _fKAN name sets use_fkan, which its forward never reads
+    "UNext_InceptionNext_MLFC_fKAN": functools.partial(UNextInceptionNextMLFC, use_fkan=True),
     "KNUnet": KMUNet,
     "UKAN": UKAN,
     "U-KAN": UKAN,  # the reference factory's spelling
@@ -243,6 +248,6 @@ __all__ = ["ACCUNet", "ACC_UNet", "ACC_UNet_Lite", "ACC_UNet_W", "Backbone_Spati
            "INPUT_SIZED", "IN_OUT_CHANS", "KMUNet", "MultiResUnet", "SEGMAMBA_NAMES",
            "SMESwinUnet", "SegMamba", "SegViTfKAN", "SpatialMamba", "SwinUnet", "TinyUNet",
            "TransUNet", "UCTransNet", "UKAN", "UNetBase", "UNetPlusPlus", "UNext", "UNextCMRF",
-           "UNext_S",
-           "VSSM", "build", "build_for", "build_segmamba", "build_unext_cmrf",
+           "UNextInceptionNextMLFC",
+           "UNext_S", "VSSM", "build", "build_for", "build_segmamba", "build_unext_cmrf",
            "init_parameters", "registry", "takes_dtype"]

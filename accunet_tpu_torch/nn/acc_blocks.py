@@ -66,11 +66,20 @@ class BatchNorm(nn.BatchNorm2d):
     fp32).
 
     `frozen_stats` skips that update; the model sets it while activation
-    checkpointing recomputes a block, so a step updates the statistics once."""
+    checkpointing recomputes a block, so a step updates the statistics once.
+
+    `batch_group` (set by parallel.mesh.set_batch_group on a mesh whose data
+    axis has more than one rank) is that axis's process group: in train mode
+    the mean and the biased variance are then those of the global batch, in
+    fp32 (float64 stays float64): each rank's mean and sum of squared
+    deviations from it, gathered in one collective that carries gradients
+    and combined (Chan et al.'s pairwise rule), and every rank updates the
+    running statistics alike."""
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__(num_features, eps=eps, momentum=momentum)
         self.frozen_stats = False
+        self.batch_group = None
 
     def scale_shift(self) -> tuple[torch.Tensor, torch.Tensor]:
         """The inference affine (scale', shift') in fp32."""
@@ -81,6 +90,10 @@ class BatchNorm(nn.BatchNorm2d):
         xc = x.permute(0, 3, 1, 2)
         if not self.training:
             return super().forward(xc).permute(0, 2, 3, 1)
+        if self.batch_group is not None:
+            y, mean, var = self._global_batch_norm(xc)
+            self._update_stats(mean, var)
+            return y.permute(0, 2, 3, 1)
         # batch statistics without running buffers; save_invstd is
         # 1/sqrt(biased var + eps), so the stats need no second pass over x.
         # torch's CPU kernel for a channels_last input sums the fp32 variance
@@ -90,14 +103,38 @@ class BatchNorm(nn.BatchNorm2d):
             xc = xc.contiguous()
         y, mean, invstd = torch.native_batch_norm(xc, self.weight, self.bias, None, None,
                                                   True, 0.0, self.eps)
-        if not self.frozen_stats:
-            with torch.no_grad():
-                var = invstd.to(self.running_var.dtype).pow(-2) - self.eps
-                mean = mean.to(self.running_mean.dtype)
-                self.running_mean.mul_(1 - self.momentum).add_(mean, alpha=self.momentum)
-                self.running_var.mul_(1 - self.momentum).add_(var, alpha=self.momentum)
-                self.num_batches_tracked.add_(1)
+        self._update_stats(mean, invstd.detach().to(self.running_var.dtype).pow(-2) - self.eps)
         return y.permute(0, 2, 3, 1)
+
+    def _update_stats(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        if self.frozen_stats:
+            return
+        with torch.no_grad():
+            self.running_mean.mul_(1 - self.momentum).add_(mean.to(self.running_mean.dtype),
+                                                           alpha=self.momentum)
+            self.running_var.mul_(1 - self.momentum).add_(var.to(self.running_var.dtype),
+                                                          alpha=self.momentum)
+            self.num_batches_tracked.add_(1)
+
+    def _global_batch_norm(self, xc: torch.Tensor):
+        """Train-mode BN of the NCHW view xc over the batch of every rank of
+        batch_group (equal slices): y in xc's type, the global mean and
+        biased variance."""
+        from accunet_tpu_torch.parallel.comm import gather_stacked
+
+        ct = torch.promote_types(xc.dtype, torch.float32)
+        x = xc.to(ct)
+        n = x.numel() // x.shape[1]  # values a channel on each rank
+        local_mean = x.mean((0, 2, 3))
+        local_m2 = (x - local_mean[None, :, None, None]).square().sum((0, 2, 3))
+        means, m2s = gather_stacked(torch.stack([local_mean, local_m2]),
+                                    self.batch_group).unbind(1)
+        mean = means.mean(0)
+        var = (m2s.sum(0) + n * (means - mean).square().sum(0)) / (n * means.shape[0])
+        scale = self.weight.to(ct) * torch.rsqrt(var + self.eps)
+        y = (x - mean[None, :, None, None]) * scale[None, :, None, None] \
+            + self.bias.to(ct)[None, :, None, None]
+        return y.to(xc.dtype), mean.detach(), var.detach()
 
 
 class ChannelSELayer(nn.Module):

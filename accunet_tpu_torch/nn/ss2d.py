@@ -18,8 +18,11 @@ SS_Conv_SSM block on NHWC maps: counterpart of accunet_tpu/nn/ss2d.py
 JAX folds the four directions into one scan call (a vmap); the fused kernel
 takes one A (D, N) and one B (B, N, L), so here each direction is one
 kernel launch forward and one backward (a launch over all four, with B and
-C grouped by direction, is later work: ROADMAP Queue 2). The flips and the
-column-major order are copies made before the launch. SS2D computes in its
+C grouped by direction, is later work: ROADMAP Queue 2); under
+`parallel.sequence_sharding` each direction's scan takes the
+sequence-parallel route alone, as JAX's unrolled directions do
+(accunet_tpu/nn/ss2d.py:97-113). The flips and the column-major order are
+copies made before the launch. SS2D computes in its
 input's type with the parameters cast at use (the scan itself in fp32, the
 norm in fp32), as KNUnet's `dtype` needs.
 """

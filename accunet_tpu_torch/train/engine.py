@@ -1,6 +1,6 @@
 """Training engine: train/eval steps, the epoch loop and checkpoints.
 
-Counterpart of accunet_tpu/train/engine.py, without a mesh and without orbax:
+Counterpart of accunet_tpu/train/engine.py, without orbax:
 
   * `make_train_fns` builds the optimizer (Adam, or SGD momentum 0.9 with
     weight decay 1e-4), the cosine-warm-restart schedule and the steps. A
@@ -17,10 +17,22 @@ Counterpart of accunet_tpu/train/engine.py, without a mesh and without orbax:
     {epoch, best_dice, best_epoch, step, state_dict, optimizer}, written to a
     temporary name and renamed into place, so an interrupted save never
     looks like a checkpoint.
+  * `mesh=` (a parallel.mesh.Mesh; JAX's engine.py:124-147) runs the same
+    step as one process on the global batch: rank 0's parameters and
+    buffers are broadcast, the BatchNorms take global statistics over the
+    data axis, parameters of at least `min_weight_size` elements are stored
+    sharded over the model axis (with their optimizer state) and gathered
+    whole for each step, the loss and the metrics are computed on the
+    predictions gathered over the data axis, and the gradients are summed
+    over it. Each rank's batch is its data slice. Only rank 0 writes
+    checkpoints, and they are the file a one-process run writes (sharded
+    parameters and moments gathered first), so they load into any mesh and
+    into the one-process CLIs.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import math
@@ -45,6 +57,21 @@ class TrainState:
     model: nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
+    mesh: Any = None  # parallel.mesh.Mesh of a mesh run
+    sharding: Any = None  # parallel.mesh.ShardedParams when the model axis shards weights
+
+    @property
+    def is_chief(self) -> bool:
+        """The rank that logs and writes checkpoints (rank 0, or the only one)."""
+        return self.mesh is None or self.mesh.is_chief
+
+    def weights(self):
+        """Context in which every parameter holds its whole value (the
+        sharded ones gathered)."""
+        return contextlib.nullcontext() if self.sharding is None else self.sharding.gathered()
+
+    def optimizer_params(self) -> list:
+        return [p for g in self.optimizer.param_groups for p in g["params"]]
 
 
 @dataclasses.dataclass
@@ -53,6 +80,12 @@ class TrainStepFns:
     eval_step: Callable  # (state, batch) -> stats
     predict_step: Callable  # (state, batch) -> main output
     state: TrainState
+
+
+def _chief(state) -> bool:
+    """Whether this rank logs and writes: TrainState.is_chief, or True for
+    step functions that thread a state of their own (None)."""
+    return state is None or state.is_chief
 
 
 def forward(model: nn.Module, batch):
@@ -81,59 +114,85 @@ def make_train_fns(
     steps_per_epoch: int = 1,
     dice_show: Callable = L.soft_dice_show,
     iou_fn: Callable = M.batch_iou,
+    mesh=None,
+    min_weight_size: int = 2 ** 18,
 ) -> TrainStepFns:
     """Steps and initial state for `model`, whose parameters are already
     initialised and on their device. Batches are {'image', 'mask'} tensors
     on the model's device, with 'text_emb' for a text-conditioned model (see
-    `forward`); loss_fn(preds, masks)."""
+    `forward`); loss_fn(preds, masks). With `mesh`, every rank calls the
+    steps alike with its data slice of each global batch, and the stats are
+    those of the global batch."""
     schedule = cosine_warm_restarts(
         learning_rate, t_0=10, t_mult=1, eta_min=1e-5, steps_per_epoch=steps_per_epoch
     )
+    params, sharding, data_group = list(model.parameters()), None, None
+    if mesh is not None:
+        from accunet_tpu_torch.parallel import mesh as pmesh
+
+        pmesh.broadcast_from_rank0(model)
+        data_group = mesh.group("data")
+        pmesh.set_batch_group(model, data_group)
+        dims = pmesh.param_sharding_rules(mesh, min_weight_size)(model)
+        if dims:
+            sharding = pmesh.ShardedParams(model, mesh, dims)
+            params = sharding.optimizer_params(model)
     if optimizer_name == "adam":
-        optimizer = torch.optim.Adam(model.parameters(), lr=learning_rate)
+        optimizer = torch.optim.Adam(params, lr=learning_rate)
     elif optimizer_name == "sgd":
         # Swin family: SGD momentum 0.9, weight decay 1e-4 added to the grad
-        optimizer = torch.optim.SGD(model.parameters(), lr=learning_rate, momentum=0.9,
-                                    weight_decay=1e-4)
+        optimizer = torch.optim.SGD(params, lr=learning_rate, momentum=0.9, weight_decay=1e-4)
     else:
         raise ValueError(optimizer_name)
-    state = TrainState(model, optimizer)
+    state = TrainState(model, optimizer, mesh=mesh, sharding=sharding)
+
+    def global_batch(preds, mask):
+        """The predictions (with gradient) and masks of the global batch."""
+        if data_group is None:
+            return preds, mask
+        return pmesh.gather_batch(mesh, preds), pmesh.gather_batch(mesh, mask)
 
     def train_step(state: TrainState, batch):
         lr = schedule(state.step)
         for group in state.optimizer.param_groups:
             group["lr"] = lr
         state.model.train()
-        preds = forward(state.model, batch)
-        loss = loss_fn(preds, batch["mask"])
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        with state.weights():
+            preds, mask = global_batch(forward(state.model, batch), batch["mask"])
+            loss = loss_fn(preds, mask)
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            if state.sharding is not None:
+                state.sharding.take_grads()
+        if data_group is not None:
+            pmesh.reduce_gradients(params, data_group)
         state.optimizer.step()
         state.step += 1
         with torch.no_grad():
             main = main_output(preds).detach()
             stats = {
                 "loss": loss.detach(),
-                "dice": dice_show(main, batch["mask"]),
-                "iou": iou_fn(main, batch["mask"]),
+                "dice": dice_show(main, mask),
+                "iou": iou_fn(main, mask),
                 "lr": lr,
             }
         return state, stats
 
     def eval_step(state: TrainState, batch):
         state.model.eval()
-        with torch.no_grad():
-            preds = forward(state.model, batch)
+        with torch.no_grad(), state.weights():
+            preds, mask = global_batch(forward(state.model, batch), batch["mask"])
             main = main_output(preds)
             return {
-                "loss": loss_fn(preds, batch["mask"]),
-                "dice": dice_show(main, batch["mask"]),
-                "iou": iou_fn(main, batch["mask"]),
+                "loss": loss_fn(preds, mask),
+                "dice": dice_show(main, mask),
+                "iou": iou_fn(main, mask),
             }
 
     def predict_step(state: TrainState, batch):
+        """The main output for this rank's batch."""
         state.model.eval()
-        with torch.no_grad():
+        with torch.no_grad(), state.weights():
             return main_output(forward(state.model, batch))
 
     return TrainStepFns(train_step, eval_step, predict_step, state)
@@ -171,10 +230,26 @@ CKPT_NAME_RE = re.compile(r"epoch_(\d{4})\.pth\.tar")
 _TMP_MARK = ".tmp-"
 
 
+def whole_state(state: TrainState) -> tuple[dict, dict]:
+    """The model's and the optimizer's state_dicts as one process holds
+    them: under a model axis the sharded parameters and their optimizer
+    state are gathered whole (a collective: every rank calls it)."""
+    if state.sharding is None:
+        return state.model.state_dict(), state.optimizer.state_dict()
+    with state.weights():
+        model_sd = state.model.state_dict()
+    return model_sd, state.sharding.full_optimizer_state(state.optimizer.state_dict(),
+                                                         state.optimizer_params())
+
+
 def save_checkpoint(ckpt_dir: str, state: TrainState, epoch: int, best_dice: float,
-                    best_epoch: int | None = None) -> str:
+                    best_epoch: int | None = None) -> str | None:
     """Write epoch_NNNN.pth.tar durably: to a temporary name, fsync'd, then
-    renamed over the final name."""
+    renamed over the final name. Under a mesh every rank calls it and rank 0
+    alone writes (the others return None)."""
+    model_sd, opt_sd = whole_state(state)
+    if not state.is_chief:
+        return None
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, f"epoch_{epoch:04d}.pth.tar")
     tmp = f"{path}{_TMP_MARK}{os.getpid()}"
@@ -183,8 +258,8 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, epoch: int, best_dice: flo
         "best_dice": float(best_dice),
         "best_epoch": epoch if best_epoch is None else best_epoch,
         "step": state.step,
-        "state_dict": state.model.state_dict(),
-        "optimizer": state.optimizer.state_dict(),
+        "state_dict": model_sd,
+        "optimizer": opt_sd,
     }
     with open(tmp, "wb") as f:
         torch.save(payload, f)
@@ -219,14 +294,21 @@ RESTORE_ERRORS = (RuntimeError, EOFError, pickle.UnpicklingError, KeyError)
 
 def restore_checkpoint(path: str, state: TrainState) -> tuple[TrainState, dict[str, Any]]:
     """Load a checkpoint into `state` (model, optimizer, step, in place) and
-    return it with the meta {epoch, best_dice, best_epoch}."""
+    return it with the meta {epoch, best_dice, best_epoch}. Under a mesh
+    every rank loads the same (whole) file and keeps its shards."""
     device = next(state.model.parameters()).device
     ckpt = torch.load(path, map_location=device, weights_only=True)
     model_sd, opt_sd = ckpt["state_dict"], ckpt["optimizer"]
     meta = {"epoch": int(ckpt["epoch"]), "best_dice": float(ckpt["best_dice"]),
             "best_epoch": int(ckpt["best_epoch"])}
     step = int(ckpt["step"])
-    state.model.load_state_dict(model_sd)
+    if state.sharding is None:
+        state.model.load_state_dict(model_sd)
+    else:
+        with state.weights():
+            state.model.load_state_dict(model_sd)
+            state.sharding.reshard()
+        opt_sd = state.sharding.local_optimizer_state(opt_sd, state.optimizer_params())
     state.optimizer.load_state_dict(opt_sd)
     state.step = step
     return state, meta
@@ -262,7 +344,7 @@ def fit(
     the resume never replaces the best). The latest epoch is always saved and
     retention keeps best + latest."""
     writer = None
-    if tensorboard_dir:
+    if tensorboard_dir and _chief(fns.state):
         try:
             from tensorboardX import SummaryWriter
         except ImportError:
@@ -294,7 +376,8 @@ def fit(
                 best_dice, best_epoch = va["dice"], epoch
             if ckpt_dir:
                 save_checkpoint(ckpt_dir, state, epoch, best_dice, best_epoch)
-                prune_checkpoints(ckpt_dir, {best_epoch, epoch})
+                if _chief(state):
+                    prune_checkpoints(ckpt_dir, {best_epoch, epoch})
             if va.get("dice", 0) <= best_dice and epoch - best_epoch >= early_stop_patience:
                 logger.info("early stopping at epoch %d (best %d)", epoch, best_epoch)
                 break
@@ -313,7 +396,9 @@ def _save_val_predictions(fns: TrainStepFns, state: TrainState, val_loader_facto
     batch = next(iter(val_loader_factory()), None)
     if batch is None:
         return
-    preds = fns.predict_step(state, batch)
+    preds = fns.predict_step(state, batch)  # on every rank: it may gather weights
+    if not _chief(state):
+        return
     save_prediction_images(vis_dir, epoch, batch["image"].cpu().numpy(),
                            batch["mask"].cpu().numpy(), preds.float().cpu().numpy(),
                            names=batch.get("names"))

@@ -227,7 +227,45 @@ From the root of a checkout, with one CUDA device:
  54. times _enc_CSSE, _GAB_wavelet_OD, _BSRB_GS, _BS_GS_Wavelet and
      _GS_Wavelet_rKAN: b8 224x224 inference in fp32 and bf16 and the fp32
      train step with its peak memory and launches. Phases 52-54 print their
-     seconds.
+     seconds;
+ 55. builds UNext_InceptionNext_MLFC and _fKAN at full width (its MetaNeXt
+     stages and MLFC skips; the same model under both names) and compares
+     each GPU vs CPU: the b1 64x64 eval forward (logits and seven module
+     outputs, rel <= 1e-3) with no port kernel launched, and a b2 64x64
+     train-mode forward with every BN's running statistics, the GPU's fp32
+     and the CPU's fp32 each against the CPU's float64 (within twice the
+     CPU's gap, or 1e-3); holds dwconv2d_wgrad against its plain version at
+     the model's four ShiftedBlock maps at b8 256x256 (4x4x160, 2x2x256,
+     4x4x160, 8x8x128), fp32 and bf16, dw and db, a second call bitwise;
+ 56. runs the train entry point with UNext_InceptionNext_MLFC at 256x256
+     (its preset), batch 8, two epochs, fp32 and bf16, and checks 4
+     dwconv2d_wgrad a step and none a validation forward; both names
+     through the eval entry point (no launch); times b8 256x256 inference
+     in fp32 and bf16, the fp32 train step with its peak memory, and the
+     wgrad at phase 55's maps beside its plain version, cuDNN's weight-only
+     backward and its bound;
+ 57. starts two ranks on the one card (subprocesses, gloo with CUDA tensors:
+     NCCL refuses two ranks on one device; parallel/ uses all-reduce,
+     all-gather and one broadcast) and in them: ACC_UNet b8 224x224 one train step on
+     data=2 (4 images a rank) and on model=2 (cnv72's and eleven other
+     weights of >= 2^18 elements sharded with their Adam moments) with a
+     validation forward each, against the one-process step on the same
+     images (the loss and the running statistics within 1e-3; the fp32
+     gradients reported: summation order moves them ~10% of the largest at
+     random init, and the float64 CPU test holds them), with each rank's
+     launches (16 hanc_mix and 18 dwconv2d_wgrad a step; 7 hanc_block, 7
+     respath_level, 9 hanc_mix a validation forward);
+     sequence_parallel_scan at the JAX bench's scan shape (8, 3136, 768), h
+     and both gradients against one rank's linear_scan / linear_scan_reverse
+     and the plain versions (rel <= 1e-4), one of each kernel a call, timed;
+     Segmamba b8 224x224 under sequence_sharding (seq=2): the eval forward
+     and one train step against the one-process fused path (the forward
+     within atol 2e-5 / rtol 1e-4, the loss within 1e-4, the gradients
+     within 1e-3 of the largest), 16 linear_scan a forward and 16 of each
+     kernel a step on each rank, no fused launch, with the peak memory;
+ 58. runs the train entry point with --distributed (NCCL, a world of one)
+     and --mesh data=1 for two epochs of ACC_UNet and checks its launches.
+     Phases 55-56 and 57-58 print their seconds.
 Phases print their seconds. It prints a JSON line of the kernels (the
 launches of every path, the new ones too), then as its last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -908,7 +946,7 @@ def compare_train_step(make_model=acc_unet, b=2, hw=TRAIN_CMP_HW, tol=TRAIN_TOL,
     return out
 
 
-def time_train_step(model, label="ACC_UNet", counters=None, dtype=torch.float32):
+def time_train_step(model, label="ACC_UNet", counters=None, dtype=torch.float32, hw=HW):
     """Phases 9b, 24 and 30: the b8 224x224 train step (forward, weighted
     Dice+BCE, backward, Adam) of a copy of `model` on the card computing in
     `dtype` (bf16: fp32 parameters cast at use), 10 steps after 3 warm-up,
@@ -921,8 +959,8 @@ def time_train_step(model, label="ACC_UNet", counters=None, dtype=torch.float32)
     m.dtype = dtype
     fns = make_train_fns(m)
     g = torch.Generator("cuda").manual_seed(6)
-    batch = {"image": torch.rand(B, HW, HW, 3, generator=g, device="cuda"),
-             "mask": (torch.rand(B, HW, HW, 1, generator=g, device="cuda") > 0.5).float()}
+    batch = {"image": torch.rand(B, hw, hw, 3, generator=g, device="cuda"),
+             "mask": (torch.rand(B, hw, hw, 1, generator=g, device="cuda") > 0.5).float()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     counts = {k: fn.launches for k, fn in counters.items()}
@@ -933,7 +971,7 @@ def time_train_step(model, label="ACC_UNet", counters=None, dtype=torch.float32)
         raise SmokeError(f"non-finite loss in the timed {label} train step")
     out = {"ms_per_step": ms, "img_per_s": B * 1e3 / ms,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
-    log(f"  {label} b{B} {HW}x{HW} {str(dtype)[6:]} train step: {ms:.3f} ms/step, "
+    log(f"  {label} b{B} {hw}x{hw} {str(dtype)[6:]} train step: {ms:.3f} ms/step, "
         f"{out['img_per_s']:.1f} "
         f"img/s, peak {out['peak_mem_gib']:.2f} GiB; per step "
         + ", ".join(f"{k} {n:g}" for k, n in per_step.items()))
@@ -1018,10 +1056,10 @@ def compare_model():
     return model
 
 
-def time_model(model, label="ACC_UNet", batch=B, dtypes=(torch.float32, torch.bfloat16)):
-    """Phases 9a and 24: inference of `model` at 224x224 (ACC_UNet and
+def time_model(model, label="ACC_UNet", batch=B, dtypes=(torch.float32, torch.bfloat16), hw=HW):
+    """Phases 9a and 24: inference of `model` at hw x hw (ACC_UNet and
     UNext b8 fp32 and bf16, UNext b1024 bf16, UNext_CMRF b8 fp32)."""
-    x = torch.randn(batch, HW, HW, 3, device="cuda",
+    x = torch.randn(batch, hw, hw, 3, device="cuda",
                     generator=torch.Generator("cuda").manual_seed(2))
     rates = {}
     for dt in dtypes:
@@ -1035,7 +1073,7 @@ def time_model(model, label="ACC_UNet", batch=B, dtypes=(torch.float32, torch.bf
         name = str(dt)[6:]
         rates[name] = {"ms_per_batch": ms, "img_per_s": batch * 1e3 / ms,
                        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
-        log(f"  {label} b{batch} {HW}x{HW} {name}: {ms:.3f} ms/batch, {batch * 1e3 / ms:.1f} "
+        log(f"  {label} b{batch} {hw}x{hw} {name}: {ms:.3f} ms/batch, {batch * 1e3 / ms:.1f} "
             f"img/s, peak {rates[name]['peak_mem_gib']:.2f} GiB")
         del m, out
         torch.cuda.empty_cache()
@@ -3280,6 +3318,427 @@ def cmrf_train_launches(name):
     return want
 
 
+# ------------------------------------------- UNext_InceptionNext_MLFC slice
+# UNext_InceptionNext_MLFC (and _fKAN, the same model) at its 256x256 preset,
+# b8: its four ShiftedBlocks' depthwise convs take their weight gradient from
+# dwconv2d_wgrad, at maps smaller than any earlier path's
+INC_NAMES = ("UNext_InceptionNext_MLFC", "UNext_InceptionNext_MLFC_fKAN")
+INC_HW = 256
+INC_CMP_HW = 64
+INC_DW_SHAPES = (("block1_0", INC_HW // 64, 160), ("block2_0", INC_HW // 128, 256),
+                 ("dblock1_0", INC_HW // 64, 160), ("dblock2_0", INC_HW // 32, 128))
+INC_TAPS = ("stage1", "stage2", "stage3", "norm3", "norm4", "dnorm3", "dnorm4")
+
+
+def inc_wgrad_cases(dev):
+    """Phase 55 and 56 cases: dwconv2d_wgrad at the four ShiftedBlock maps of
+    UNext_InceptionNext_MLFC b8 256x256 (x and g ~ N(0, 1))."""
+    g = torch.Generator(device=dev).manual_seed(55)
+
+    def cases(dt):
+        return [wgrad_case(f"inception.{name}",
+                           *(torch.randn(B, hw, hw, c, generator=g, device=dev).to(dt)
+                             for _ in range(2)))
+                for name, hw, c in INC_DW_SHAPES]
+
+    return cases
+
+
+def compare_inception_cpu(name, counters):
+    """Phase 55: `name` at full width, GPU vs CPU: the b1 64x64 eval forward
+    (logits and INC_TAPS, compare_on_cpu) launching no port kernel; a b2
+    64x64 train-mode forward with every BN's running statistics, the GPU's
+    fp32 and the CPU's fp32 (the control) each against the CPU's float64:
+    each within twice the control's gap, or MODEL_TOL."""
+    model = seeded_unext(name)
+    for fn in counters.values():
+        fn.launches = 0
+    out = {"eval_rel": compare_on_cpu(model, name, INC_CMP_HW, INC_TAPS, 55)}
+    if any(fn.launches for fn in counters.values()):
+        raise SmokeError(f"{name}'s eval forward launched "
+                         f"{ {k: fn.launches for k, fn in counters.items()} }")
+    x = torch.from_numpy(np.random.default_rng(56).standard_normal(
+        (2, INC_CMP_HW, INC_CMP_HW, 3), dtype=np.float32))
+    init = {n: t.double() for n, t in model.named_buffers() if "running" in n}
+    res = {}
+    for tag, d, dt in (("gpu", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
+                       ("cpu64", "cpu", torch.float64)):
+        m = copy.deepcopy(model).to(device=d, dtype=dt).train()
+        with torch.no_grad():
+            y = m(x.to(d, dt)).double().cpu()
+        res[tag] = (y, {n: t.double().cpu() for n, t in m.named_buffers() if "running" in n})
+    for tag in ("gpu", "cpu"):
+        out[f"train_out_{tag}"] = rel_err(res[tag][0], res["cpu64"][0])[1]
+        out[f"bn_stats_{tag}"], out[f"bn_worst_{tag}"] = bn_stat_err(res[tag][1], res["cpu64"][1],
+                                                                     init)
+    lim_out = max(2 * out["train_out_cpu"], MODEL_TOL)
+    lim_bn = max(2 * out["bn_stats_cpu"], MODEL_TOL)
+    log(f"  {name} b2 {INC_CMP_HW}x{INC_CMP_HW} train-mode forward vs the float64 CPU one, GPU "
+        f"(CPU fp32 control): output rel {out['train_out_gpu']:.3e} ({out['train_out_cpu']:.3e}, "
+        f"limit {lim_out:.3e}); BN statistics {out['bn_stats_gpu']:.3e} at "
+        f"{out['bn_worst_gpu']} ({out['bn_stats_cpu']:.3e}, limit {lim_bn:.3e})")
+    if out["train_out_gpu"] > lim_out or out["bn_stats_gpu"] > lim_bn:
+        raise SmokeError(f"{name}'s train-mode forward on the GPU disagrees with the CPU")
+    return out
+
+
+# ------------------------------------------------- scale-out: parallel/
+# Two ranks on the one card, over gloo with CUDA tensors (NCCL refuses two
+# ranks on one device); parallel/ uses all-reduce, all-gather and (the
+# initial weights) broadcast, which gloo runs on CUDA tensors. The sequence-parallel scan at the JAX
+# bench's scan shape (bench.py:150-179), Segmamba b8 224x224 under
+# sequence_sharding with seq=2, ACC_UNet b8 224x224 as 2 ranks x b4 with
+# data=2 and as 2 ranks x b8 with model=2.
+MESH_RANKS = 2
+# model=2 vs the one-process step, the gradients' gap over the largest: both
+# ranks compute the whole step, so only the card's run-to-run summation order
+# moves them (8.8e-7 and 6.8e-7 measured on an H100); a wrong shard slice or
+# index moves them by O(1)
+MESH_MODEL_GRAD_TOL = 1e-4
+SEQ_SCAN_SHAPE = (B, 3136, 768)
+SEQ_TOL = (2e-5, 1e-4)  # atol, rtol: tests/test_torch_parallel.py's SS2D / SSM bar
+MESH_TIMEOUT = 600
+
+
+def _record_grads(state, names):
+    """Wrap state.optimizer.step to keep each gradient (on the CPU, as
+    float64) just before the update."""
+    grads, step = {}, state.optimizer.step
+
+    def recording(*args, **kw):
+        for p in state.optimizer_params():
+            if p.grad is not None:
+                grads[names[id(p)]] = p.grad.detach().double().cpu()
+        return step(*args, **kw)
+
+    state.optimizer.step = recording
+    return grads
+
+
+def _grad_gap(got, want, shards=None):
+    """The largest gradient error over the largest reference gradient; a
+    sharded gradient against its slice of the reference."""
+    scale = max(float(t.abs().max()) for t in want.values())
+    worst = 0.0
+    for n, t in want.items():
+        if shards and n in shards:
+            dim, index = shards[n]
+            size = got[n].shape[dim]
+            t = t.narrow(dim, index * size, size)
+        worst = max(worst, float((got[n] - t).abs().max()))
+    return worst / scale
+
+
+def worker_mesh_acc(rank, counters):
+    """ACC_UNet b8 224x224 (n_filts 32): the one-process step on the 8
+    images (rank 0), then one step on data=2 (each rank its 4 images) and on
+    model=2 (both ranks the 8; cnv72's 128 -> 4352 weights and their Adam
+    moments sharded), each followed by a validation forward (eval_step), with
+    the launches of each. Rank 0 compares the loss, the running statistics
+    and the gradients with the one-process step."""
+    from accunet_tpu_torch.parallel.mesh import MeshSpec, batch_slice, make_mesh
+    from accunet_tpu_torch.train.engine import make_train_fns
+
+    base = acc_unet()
+    rs = np.random.default_rng(41)
+    x = torch.from_numpy(rs.random((B, HW, HW, 3), dtype=np.float32)).cuda()
+    share = np.repeat([0.8, 0.2], B // 2)[:, None, None, None]  # per data slice
+    mask = torch.from_numpy((rs.random((B, HW, HW, 1)) < share).astype(np.float32)).cuda()
+    init = {n: t.double() for n, t in base.named_buffers() if "running" in n}
+    ref = None
+    if rank == 0:
+        m = copy.deepcopy(base).cuda()
+        fns = make_train_fns(m)
+        names = {id(p): n for n, p in m.named_parameters()}
+        grads = _record_grads(fns.state, names)
+        _, stats = fns.train_step(fns.state, {"image": x, "mask": mask})
+        ref = (float(stats["loss"]), grads,
+               {n: t.double().cpu() for n, t in m.named_buffers() if "running" in n})
+        del m, fns
+        torch.cuda.empty_cache()
+    out = {}
+    for tag, spec in (("data2", MeshSpec(data=2)), ("model2", MeshSpec(data=1, model=2))):
+        mesh = make_mesh(spec)
+        m = copy.deepcopy(base).cuda()
+        fns = make_train_fns(m, mesh=mesh)
+        st = fns.state
+        names = {id(p): n for n, p in m.named_parameters()}
+        shards = {}
+        if st.sharding is not None:
+            names.update({id(it.shard): it.name for it in st.sharding.items})
+            shards = {it.name: (it.dim, mesh.coords["model"]) for it in st.sharding.items}
+        grads = _record_grads(st, names)
+        rows = batch_slice(mesh, B)
+        batch = {"image": x[rows], "mask": mask[rows]}
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        _, stats = fns.train_step(st, batch)
+        torch.cuda.synchronize()
+        step_launches = {k: fn.launches for k, fn in counters.items()}
+        for fn in counters.values():
+            fn.launches = 0
+        fns.eval_step(st, batch)
+        torch.cuda.synchronize()
+        val_launches = {k: fn.launches for k, fn in counters.items()}
+        r = {"loss": float(stats["loss"]), "step_launches": step_launches,
+             "validation_launches": val_launches,
+             "sharded": {it.name: {"local": list(it.shard.shape), "whole": list(it.shape),
+                                   "dim": it.dim}
+                         for it in (st.sharding.items if st.sharding else ())}}
+        if ref is not None:
+            stats_now = {n: t.double().cpu() for n, t in m.named_buffers() if "running" in n}
+            r["loss_rel"] = abs(r["loss"] - ref[0]) / abs(ref[0])
+            r["bn_stats"], r["bn_worst"] = bn_stat_err(stats_now, ref[2], init)
+            r["grad_gap"] = _grad_gap(grads, ref[1], shards)
+        out[tag] = r
+        del m, fns, st, grads
+        torch.cuda.empty_cache()
+    return out
+
+
+def worker_seq_scan(rank, counters):
+    """sequence_parallel_scan at (8, 3136, 768) over the seq axis: each rank
+    its (8, 1568, 768) shard; h, da and db against one rank's linear_scan /
+    linear_scan_reverse on the whole sequence and against the plain
+    versions; the launches of one call and its backward; ms of the
+    two-rank call (forward and backward, the ranks sharing the card) beside
+    one rank's kernels on the whole sequence."""
+    from accunet_tpu_torch.ops.kernels import scan as S
+    from accunet_tpu_torch.parallel import MeshSpec, make_mesh, sequence_parallel_scan
+
+    mesh = make_mesh(MeshSpec(data=1, seq=MESH_RANKS))
+    group = mesh.group("seq")
+    b, l, d = SEQ_SCAN_SHAPE
+    g = torch.Generator("cuda").manual_seed(57)
+    a, x = scan_inputs(g, b, l, d)
+    gy = torch.randn(b, l, d, generator=g, device="cuda")
+    per = l // MESH_RANKS
+    rows = slice(rank * per, (rank + 1) * per)
+    h = S.linear_scan(a, x)
+    da, db = S.linear_scan_reverse(a, h, gy)
+    hp = S.linear_scan_plain(a, x)
+    dap, dbp = S.linear_scan_grads_plain(a, hp, gy)
+
+    def seq_call():
+        a_s = a[:, rows].clone().requires_grad_()
+        x_s = x[:, rows].clone().requires_grad_()
+        h_s = sequence_parallel_scan(a_s, x_s, group)
+        h_s.backward(gy[:, rows])
+        return h_s, a_s.grad, x_s.grad
+
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    got = seq_call()
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    errs = {}
+    for key, mine, kern, plain in (("h", got[0], h, hp), ("da", got[1], da, dap),
+                                   ("db", got[2], db, dbp)):
+        errs[f"{key}_vs_kernel"] = rel_err(mine, kern[:, rows])[1]
+        errs[f"{key}_vs_plain"] = rel_err(mine, plain[:, rows])[1]
+    ms = time_ms(seq_call, iters=5, warmup=1)
+    full_ms = time_ms(lambda: S.linear_scan_reverse(a, S.linear_scan(a, x), gy), iters=5,
+                      warmup=1)
+    return {"errs": errs, "launches": launches, "ms_fwd_bwd": ms,
+            "one_rank_kernels_ms": full_ms}
+
+
+def worker_seq_segmamba(rank, counters):
+    """Segmamba b8 224x224 (full width, seeded): rank 0 runs the one-process
+    fused path (the eval forward, one train step); then both ranks run the
+    eval forward and one train step under sequence_sharding with seq=2
+    (every scan on the unfused route, its L over the two ranks), with the
+    launches of each; rank 0 compares them with the fused path."""
+    from accunet_tpu_torch.parallel import MeshSpec, make_mesh, sequence_sharding
+    from accunet_tpu_torch.train import losses as L
+    from accunet_tpu_torch.train.engine import make_train_fns
+
+    base = segmamba_model()
+    rs = np.random.default_rng(58)
+    x = torch.from_numpy(rs.standard_normal((B, HW, HW, 3), dtype=np.float32)).cuda()
+    mask = torch.from_numpy((rs.random((B, HW, HW, 1)) > 0.5).astype(np.float32)).cuda()
+    batch = {"image": x, "mask": mask}
+    loss_fn = L.LOSSES["binary_dice_bce"]  # Segmamba's preset loss
+    ref = None
+    if rank == 0:
+        m = copy.deepcopy(base).cuda()
+        with torch.no_grad():
+            ref_out = m(x).cpu()
+        fns = make_train_fns(m, loss_fn=loss_fn)
+        grads = _record_grads(fns.state, {id(p): n for n, p in m.named_parameters()})
+        _, stats = fns.train_step(fns.state, batch)
+        ref = (ref_out, float(stats["loss"]), grads)
+        del m, fns
+        torch.cuda.empty_cache()
+    mesh = make_mesh(MeshSpec(data=1, seq=MESH_RANKS))
+    m = copy.deepcopy(base).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with torch.no_grad(), sequence_sharding(mesh):
+        out = m(x).cpu()
+    fwd_s = time.perf_counter() - t0
+    fwd_launches = {k: fn.launches for k, fn in counters.items()}
+    fns = make_train_fns(m, loss_fn=loss_fn, mesh=mesh)
+    grads = _record_grads(fns.state, {id(p): n for n, p in m.named_parameters()})
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with sequence_sharding(mesh):
+        _, stats = fns.train_step(fns.state, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    r = {"forward_launches": fwd_launches,
+         "step_launches": {k: fn.launches for k, fn in counters.items()},
+         "forward_s": fwd_s, "step_s": step_s,
+         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    if ref is not None:
+        r["out_rel"] = rel_err(out, ref[0])[1]
+        r["out_close"] = bool(torch.allclose(out, ref[0], atol=SEQ_TOL[0], rtol=SEQ_TOL[1]))
+        r["loss_rel"] = abs(float(stats["loss"]) - ref[1]) / abs(ref[1])
+        r["grad_gap"] = _grad_gap(grads, ref[2])
+    return r
+
+
+def rank_worker(rank: int, world: int, port: int, out_path: str) -> None:
+    """One rank of phase 57 (started by run_mesh_ranks): gloo over
+    127.0.0.1:port, cuda:0, the counters wrapped as in main; writes its
+    results to out_path as JSON."""
+    import torch.distributed as dist
+
+    from accunet_tpu_torch.ops.kernels.dwconv2d import dwconv2d_wgrad
+    from accunet_tpu_torch.ops.kernels.hanc_block import hanc_block
+    from accunet_tpu_torch.ops.kernels.hanc_mix import hanc_mix
+    from accunet_tpu_torch.ops.kernels.respath import respath_level
+    from accunet_tpu_torch.ops.kernels.scan import linear_scan, linear_scan_reverse
+    from accunet_tpu_torch.ops.kernels.selective_scan import selective_scan_bwd, selective_scan_fwd
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    try:
+        acc = {"hanc_block": hanc_block, "respath_level": respath_level, "hanc_mix": hanc_mix,
+               "dwconv2d_wgrad": dwconv2d_wgrad}
+        scans = {"linear_scan": linear_scan, "linear_scan_reverse": linear_scan_reverse,
+                 "selective_scan_fwd": selective_scan_fwd, "selective_scan_bwd": selective_scan_bwd}
+        res = {"acc": worker_mesh_acc(rank, acc), "scan": worker_seq_scan(rank, scans),
+               "segmamba": worker_seq_segmamba(rank, scans)}
+        with open(out_path, "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_mesh_ranks():
+    """Phase 57: MESH_RANKS processes of rank_worker on the one card, each
+    waited for with its own timeout and killed if it outlives it; returns
+    rank 0's results after checking both ranks' launches agree, with the
+    scan's errors the largest of the ranks'."""
+    port = free_port()
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f"rank{r}.json") for r in range(MESH_RANKS)]
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke.rank_worker({r}, {MESH_RANKS}, "
+                                   f"{port}, {outs[r]!r})"],
+            cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(MESH_RANKS)]
+        texts = []
+        try:
+            for p in procs:
+                texts.append(p.communicate(timeout=MESH_TIMEOUT)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate(timeout=60)
+        for r, (p, text) in enumerate(zip(procs, texts)):
+            if p.returncode != 0:
+                raise SmokeError(f"mesh rank {r} exited {p.returncode}:\n{text[-4000:]}")
+        res = []
+        for path in outs:
+            with open(path) as f:
+                res.append(json.load(f))
+    for key in (("acc", "data2", "step_launches"), ("acc", "model2", "step_launches"),
+                ("scan", "launches"), ("segmamba", "forward_launches"),
+                ("segmamba", "step_launches")):
+        a, b_ = (_dig(r, key) for r in res)
+        if a != b_:
+            raise SmokeError(f"ranks launched differently at {key}: {a} vs {b_}")
+    # every rank's shard of the scan is checked (rank 0's carry-in is 0)
+    res[0]["scan"]["errs"] = {k: max(r["scan"]["errs"][k] for r in res)
+                              for k in res[0]["scan"]["errs"]}
+    res[0]["segmamba"]["peak_mem_gib_by_rank"] = [r["segmamba"]["peak_mem_gib"] for r in res]
+    return res[0]
+
+
+def _dig(d, keys):
+    for k in keys:
+        d = d[k]
+    return d
+
+
+def check_mesh_results(res):
+    """Phase 57's gates on rank 0's results: the sequence-parallel scan
+    within FP32_TOL of one rank's kernels and of the plain versions, one
+    linear_scan and one linear_scan_reverse a call; Segmamba under
+    sequence_sharding: 16 linear_scan a forward and 16 of each a step, no
+    fused launch, the forward within SEQ_TOL of the fused path's, the loss
+    within FP32_TOL, the gradients reported (gap over the largest, gated at
+    TRAIN_TOL); ACC_UNet data=2 and model=2: the launches of one rank's
+    step (16 hanc_mix, 18 dwconv2d_wgrad) and validation forward (7
+    hanc_block, 7 respath_level, 9 hanc_mix), the loss and the running
+    statistics within TRAIN_TOL of the one-process step, cnv72's sharded
+    weights half their dim; model=2's gradients (the shards' against their
+    slices) within MESH_MODEL_GRAD_TOL; data=2's reported only (the fp32 ACC
+    step at random init moves ~10% of the largest gradient with summation
+    order, compare_train_step; the float64 CPU test holds them to 1e-8)."""
+    bad = []
+    sc = res["scan"]
+    if max(sc["errs"].values()) > FP32_TOL or \
+            (sc["launches"]["linear_scan"], sc["launches"]["linear_scan_reverse"]) != (1, 1):
+        bad.append(f"sequence_parallel_scan {sc}")
+    sm = res["segmamba"]
+    want_fwd = {"linear_scan": SCANS_PER_FORWARD, "linear_scan_reverse": 0,
+                "selective_scan_fwd": 0, "selective_scan_bwd": 0}
+    want_step = {**want_fwd, "linear_scan_reverse": SCANS_PER_FORWARD}
+    if sm["forward_launches"] != want_fwd or sm["step_launches"] != want_step:
+        bad.append(f"Segmamba seq launches {sm['forward_launches']} / {sm['step_launches']}")
+    if not sm["out_close"] or sm["loss_rel"] > FP32_TOL or sm["grad_gap"] > TRAIN_TOL:
+        bad.append(f"Segmamba seq vs fused: {sm}")
+    for tag in ("data2", "model2"):
+        r = res["acc"][tag]
+        want_step = {"hanc_block": 0, "respath_level": 0, "hanc_mix": 16, "dwconv2d_wgrad": 18}
+        want_val = {**{k: v for k, v in EVAL_LAUNCHES.items() if k != "expand_dw"},
+                    "dwconv2d_wgrad": 0}
+        if r["step_launches"] != want_step or r["validation_launches"] != want_val:
+            bad.append(f"ACC {tag} launches {r['step_launches']} / {r['validation_launches']}")
+        if r["loss_rel"] > TRAIN_TOL or r["bn_stats"] > TRAIN_TOL:
+            bad.append(f"ACC {tag} vs one process: loss {r['loss_rel']}, BN {r['bn_stats']}")
+        if tag == "model2" and r["grad_gap"] > MESH_MODEL_GRAD_TOL:
+            bad.append(f"ACC model2 gradients vs one process: {r['grad_gap']}")
+        if tag == "model2" and not (r["sharded"] and all(
+                v["local"][v["dim"]] * MESH_RANKS == v["whole"][v["dim"]]
+                for v in r["sharded"].values())):
+            bad.append(f"ACC model2 shards {r['sharded']}")
+    if bad:
+        raise SmokeError("mesh phases: " + "; ".join(bad))
+
+
 class Phases:
     """Logs each phase's title and, when the next begins (or `end()`), the
     seconds it took."""
@@ -3696,13 +4155,72 @@ def main() -> int:
     log(f"  phases 52-54 took {time.perf_counter() - t_cmrf:.1f} s")
     log("  " + json.dumps({"card": card, "cmrf_rest": cmrf_rates, "cmrf_rest_checks": cmrf_checks}))
 
+    phase(f"[55] {INC_NAMES[0]} and _fKAN at full width, GPU vs CPU (b1 {INC_CMP_HW}x{INC_CMP_HW} "
+          f"eval, no kernel; b2 train-mode forward and BN statistics); dwconv2d_wgrad at its "
+          f"four ShiftedBlock maps (b{B} {INC_HW}x{INC_HW}); {card}")
+    t_inc = time.perf_counter()
+    inc_checks = {name: compare_inception_cpu(name, counters) for name in INC_NAMES}
+    inc_cases = inc_wgrad_cases(dev)
+    for kname, err in check_kernels(inc_cases, worst_bf16).items():
+        worst[kname] = max(worst[kname], err)
+
+    phase(f"[56] {INC_NAMES[0]} through accunet_tpu_torch.cli.train on cuda ({INC_HW}x{INC_HW}, "
+          f"b{B}, two epochs, fp32 and bf16), both names through accunet_tpu_torch.cli.eval; b{B} "
+          f"inference fp32 and bf16, the fp32 train step; {card}")
+    inc_rates = {}
+    for tag, extra in (("inc", ()), ("inc_bf16", BF16_SET)):
+        timing = {}
+        inc_launches = run_train_cli(counters, INC_NAMES[0], unext_train_launches, extra,
+                                     hw=INC_HW, timing=timing, resume=False)
+        launches[f"{tag}_train_cli_steps"] = inc_launches["train_steps"]
+        launches[f"{tag}_train_cli_validation"] = inc_launches["validation"]
+        inc_rates[f"{tag}_train_cli"] = timing
+    for name in INC_NAMES:
+        launches[f"{name.lower()}_eval_cli"] = run_eval_cli(counters, name, hw=INC_HW,
+                                                            per_forward={})
+    inc = seeded_unext(INC_NAMES[0])
+    inc_rates["inference"] = time_model(inc, INC_NAMES[0], hw=INC_HW)
+    inc_rates["train_step_fp32"] = time_train_step(inc, INC_NAMES[0],
+                                                   {"dwconv2d_wgrad": dwconv2d_wgrad}, hw=INC_HW)
+    times.update(time_kernels(inc_cases))
+    del inc
+    gc_cuda()
+    phase.end()
+    log(f"  phases 55-56 took {time.perf_counter() - t_inc:.1f} s")
+    log("  " + json.dumps({"card": card, "inception": inc_rates, "inception_checks": inc_checks}))
+
+    phase(f"[57] parallel/, {MESH_RANKS} ranks on the one card over gloo: ACC_UNet b{B} {HW}x{HW} "
+          f"on data=2 and model=2 vs one process; sequence_parallel_scan at {SEQ_SCAN_SHAPE}; "
+          f"Segmamba b{B} {HW}x{HW} under sequence_sharding (seq=2) vs the fused path; {card}")
+    t_mesh = time.perf_counter()
+    mesh_res = run_mesh_ranks()
+    log("  " + json.dumps({"card": card, "mesh": mesh_res}))
+    check_mesh_results(mesh_res)
+    for tag in ("data2", "model2"):
+        launches[f"mesh_acc_{tag}_step"] = mesh_res["acc"][tag]["step_launches"]
+        launches[f"mesh_acc_{tag}_validation"] = mesh_res["acc"][tag]["validation_launches"]
+    launches["seq_parallel_scan"] = mesh_res["scan"]["launches"]
+    launches["seq_segmamba_forward"] = mesh_res["segmamba"]["forward_launches"]
+    launches["seq_segmamba_step"] = mesh_res["segmamba"]["step_launches"]
+
+    phase(f"[58] the real backend: ACC_UNet through accunet_tpu_torch.cli.train --distributed "
+          f"(NCCL, a world of one) --mesh data=1 on cuda, two epochs; {card}")
+    nccl_launches = run_train_cli(counters, "ACC_UNet", with_zeros(acc_train_launches),
+                                  ("--distributed", f"127.0.0.1:{free_port()},0,1",
+                                   "--mesh", "data=1"), resume=False)
+    launches["nccl_train_cli_steps"] = nccl_launches["train_steps"]
+    launches["nccl_train_cli_validation"] = nccl_launches["validation"]
+    phase.end()
+    log(f"  phases 57-58 took {time.perf_counter() - t_mesh:.1f} s")
+
     # the shapes whose times the kernels line lists per kernel
     by_shape = {"hanc_block": ("cnv12", "cnv22", "cnv81", "cnv91"),
                 "respath_level": ("rspth1.level0", "rspth1.level1", "rspth2.level1"),
                 "hanc_mix": ("cnv11", "cnv31", "cnv61", "cnv72"),
                 "dwconv2d_wgrad": ("cnv12", "cnv52", "cnv61", "cnv72")
                 + tuple(f"unext.{name}" for name, *_ in UNEXT_DW_SHAPES)
-                + tuple(f"ukan.{name}" for name, *_ in UKAN_DW_SHAPES)}
+                + tuple(f"ukan.{name}" for name, *_ in UKAN_DW_SHAPES)
+                + tuple(f"inception.{name}" for name, *_ in INC_DW_SHAPES)}
     timed_case = {"hanc_block": "cnv91", "respath_level": "rspth1.level1", "hanc_mix": "cnv72",
                   "dwconv2d_wgrad": "cnv72", "linear_scan": "stage0",
                   "linear_scan_staged": "stage0", "expand_dw": "cnv72.w_b2_512",
@@ -3717,11 +4235,12 @@ def main() -> int:
     # and both cnv72 shapes.
     # The fused selective scan's path is Segmamba's train CLI (its forward
     # also runs in the validation forwards); their entries add the unfused
-    # path's time and every stage. The standalone scans are on no path since
-    # the fused kernels took their place: linear_scan (whose count adds its
-    # reverse instantiation's; both given apart) and linear_scan_staged (JAX
-    # never dispatches its TPU kernel either) count 0 on Segmamba's path and
-    # ran only in phases 10 and 14. The rh kernels' path is the Spatial-Mamba
+    # path's time and every stage. linear_scan's path is Segmamba's train
+    # step under sequence_sharding on two ranks (phase 57: its count adds
+    # its reverse instantiation's; both given apart; its entry adds the
+    # sequence-parallel scan's check and time); elsewhere the fused kernels
+    # took its place. linear_scan_staged is on no path (JAX never dispatches
+    # its TPU kernel either) and ran only in phases 10 and 14. The rh kernels' path is the Spatial-Mamba
     # variant's train CLI (the forward also runs in its validation forwards);
     # their entries add every shape of phase 29. The hybrid paths (phase 36:
     # the text rung's fused scans without z, the flagship's rh scans) are in
@@ -3736,7 +4255,9 @@ def main() -> int:
     # Phase 53's paths (UNext_CMRF_GAB_wavelet_OD in fp32 and bf16 and
     # UNext_CMRF_GS_Wavelet_rKAN through the train CLI: the wgrad 4 and 12
     # times a step; both through the eval CLI: none) are in
-    # `launches_by_path` too
+    # `launches_by_path` too, and so are phases 56-58's (InceptionNext's
+    # train and eval CLIs, the mesh steps and validation forwards of each
+    # rank, the sequence-parallel scan and Segmamba, the NCCL train CLI)
     meta = {
         "hanc_block": ("accunet_tpu_torch/csrc/hanc_block.cu",
                        "accunet_tpu/ops/pallas/hanc_block.py:335", "eval_cli"),
@@ -3747,7 +4268,7 @@ def main() -> int:
         "dwconv2d_wgrad": ("accunet_tpu_torch/csrc/dwconv2d_wgrad.cu",
                            "accunet_tpu/ops/pallas/dwconv2d.py:76", "train_cli_steps"),
         "linear_scan": ("accunet_tpu_torch/csrc/linear_scan.cu",
-                        "accunet_tpu/ops/pallas/scan.py:62", "segmamba_train_cli_steps"),
+                        "accunet_tpu/ops/pallas/scan.py:62", "seq_segmamba_step"),
         "linear_scan_staged": ("accunet_tpu_torch/csrc/linear_scan.cu",
                                "accunet_tpu/ops/pallas/scan_dma.py:114",
                                "segmamba_train_cli_steps"),
@@ -3792,6 +4313,11 @@ def main() -> int:
         if name == "linear_scan":
             kernels[-1]["launches_forward"] = launches[path]["linear_scan"]
             kernels[-1]["launches_reverse"] = launches[path]["linear_scan_reverse"]
+            kernels[-1]["seq_parallel"] = {
+                "shape": f"{SEQ_SCAN_SHAPE} over {MESH_RANKS} ranks of one card",
+                "ms_fwd_bwd": mesh_res["scan"]["ms_fwd_bwd"],
+                "one_rank_kernels_ms": mesh_res["scan"]["one_rank_kernels_ms"],
+                "rel_errs": mesh_res["scan"]["errs"]}
         if name in ("selective_scan_fwd", "selective_scan_bwd"):
             kernels[-1]["unfused_ms"] = t["unfused_ms"]
             kernels[-1]["by_shape"] = {f"{c} float32": times[(name, c, "float32")]
