@@ -59,8 +59,8 @@ FAMILIES = (
     ("selective_scan_rh_bwd", "selective_scan_rh_bwd"),  # (its reduce launch is the next one's)
     ("selective_scan_fwd_kernel", "selective_scan_fwd"),
     ("selective_scan_bwd", "selective_scan_bwd"),  # the kernel and its reduce launch
-    ("linear_scan_kernel<true>", "linear_scan_reverse"),
-    ("linear_scan_kernel<false>", "linear_scan"),
+    ("linear_scan_kernel<true", "linear_scan_reverse"),  # <REVERSE, NBUF, VEC16>
+    ("linear_scan_kernel<false", "linear_scan"),
     ("hanc_block_kernel", "hanc_block"),
     ("respath_level_kernel", "respath_level"),
     ("hanc_mix_kernel", "hanc_mix"),

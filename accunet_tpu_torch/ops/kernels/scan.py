@@ -13,9 +13,13 @@ Counterparts:
     (accunet_tpu/ops/pallas/scan_dma.py:114), forward only; its h is bitwise
     equal to `linear_scan`'s.
 
-The kernels are bound by bytes (one FMA per 12 bytes moved); the source says
-how each hides the latency of its sequential walk. They take float32 only:
-`selective_scan` casts to float32 before the scan, as the JAX one does.
+All three launch one kernel: a warp a 32-column tile walking L through a
+ring of tiles in shared memory filled by asynchronous copies, at a fixed
+ring for `linear_scan` and its reverse and at the caller's `chunk` / `nbuf`
+for `dma_chunked_scan`. It is bound by bytes (one FMA per 12 bytes moved);
+the source says how it hides the latency of its sequential walk. The
+wrappers take float32 only: `selective_scan` casts to float32 before the
+scan, as the JAX one does.
 Each wrapper runs the plain version for a CPU tensor; for a CUDA tensor it
 launches its kernel or raises.
 """
@@ -26,7 +30,7 @@ import torch
 
 from accunet_tpu_torch.ops.kernels import _build
 
-_STAGE_COLS = 32  # columns per CTA of the staged kernel (csrc/linear_scan.cu)
+_STAGE_COLS = 32  # columns per CTA of the scan kernel (csrc/linear_scan.cu)
 _SMEM_LIMIT = 232448  # dynamic shared memory a block may use on the H100
 
 
@@ -125,7 +129,8 @@ def dma_chunked_scan(a: torch.Tensor, b: torch.Tensor, chunk: int = 128,
                      nbuf: int = 4) -> torch.Tensor:
     """h[t] = a[t]*h[t-1] + b[t] along axis 1, forward only, through an
     nbuf-deep ring of (chunk x 32-column) tiles in shared memory filled by
-    cp.async (JAX `dma_chunked_scan`, whose numerics equal
+    cp.async: `linear_scan`'s kernel at the ring the caller chooses (JAX
+    `dma_chunked_scan`, whose numerics equal
     `chunked_linear_scan`'s: here h is bitwise equal to `linear_scan`'s).
     a, b (B, L, D) float32 contiguous, 16-byte aligned, D % 4 == 0."""
     if a.device.type == "cpu":

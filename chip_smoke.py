@@ -37,7 +37,8 @@ From the root of a checkout, with one CUDA device:
      level, so no library call);
  10. holds the scan kernels (linear_scan forward and reverse, the staged
      dma_chunked_scan) against their plain versions at the four stage shapes
-     of Segmamba b8 224x224, and the staged kernel bitwise against
+     of Segmamba b8 224x224, BASELINE config 5's (8, 3136, 768) and the
+     tails of the tiling, and the staged kernel bitwise against
      linear_scan; then the fused selective scan (selective_scan_fwd and
      selective_scan_bwd) against its plain versions at the four BiMamba
      stage shapes and an odd one (out, the last state and all eight
@@ -51,7 +52,8 @@ From the root of a checkout, with one CUDA device:
      checks 16 fused forwards per train step and per validation forward, 16
      fused backwards per train step and no linear_scan launch;
  14. times Segmamba inference and its train step, each scan kernel per
-     stage against its plain version and its bound, and each fused kernel
+     stage, at config 5 (with its Mtok/s) and at the seq=2 shards of stage
+     0 and config 5 against its plain version and its bound, and each fused kernel
      per stage against its plain version, the unfused path it replaces (the
      glue around linear_scan / its reverse) and its bound;
  15. holds the expand_dw kernel (the hybrid HANCBlock front half) against its
@@ -1128,29 +1130,44 @@ N_STATES = 16
 
 def scan_inputs(g, b, l, d):
     """a = exp(delta * A) as a BiMamba branch makes it (delta the softplus of
-    N(0, 1) per channel, A = -(1..16) along each state row), b ~ N(0, 0.3^2)."""
-    delta = torch.nn.functional.softplus(torch.randn(b, l, d // 16, 1, generator=g, device="cuda"))
-    a = torch.exp(delta * -torch.arange(1, 17, device="cuda", dtype=torch.float32))
+    N(0, 1) per channel, A = -(1..16) along each state row; A = -1 where D is
+    no multiple of 16), b ~ N(0, 0.3^2)."""
+    n = 16 if d % 16 == 0 else 1
+    delta = torch.nn.functional.softplus(torch.randn(b, l, d // n, 1, generator=g, device="cuda"))
+    a = torch.exp(delta * -torch.arange(1, n + 1, device="cuda", dtype=torch.float32))
     return a.reshape(b, l, d), 0.3 * torch.randn(b, l, d, generator=g, device="cuda")
+
+
+# the standalone scan beyond the stage shapes: BASELINE config 5 (bench.py:150-179;
+# the sequence-parallel check's SEQ_SCAN_SHAPE), the seq=2 shards of stage 0
+# and of config 5 (phase 57's route), and two tails of the tiling: a
+# 4-column tile and L not whole 32-row ring slots; D % 4 != 0 (4-byte fill)
+SCAN_CONFIG5 = ("config5", B, 3136, 768)
+SCAN_SHARDS = (("stage0.seq2", B, SCAN_STAGES[0][2] // 2, SCAN_STAGES[0][3]),
+               ("config5.seq2", B, SCAN_CONFIG5[2] // 2, SCAN_CONFIG5[3]))
+SCAN_TAILS = (("tail", 2, 1001, 100), ("unaligned", 2, 777, 13))
 
 
 def check_scan_kernels():
     """Phase 10: linear_scan (forward and reverse) vs linear_scan_plain /
-    linear_scan_grads_plain at Segmamba's four stage shapes and at one odd
-    shape (B 3, L 300: a partial last chunk, D 48: a partial 32-column tile),
-    fp32 rel <= FP32_TOL; linear_scan_staged (dma_chunked_scan) bitwise equal
-    to linear_scan at nbuf 2 and 4 (and chunk 64 on the odd shape). Returns
-    {kernel: max abs error vs plain}."""
+    linear_scan_grads_plain at Segmamba's four stage shapes, BASELINE config
+    5's (8, 3136, 768), one odd shape (B 3, L 300, D 48: a partial
+    32-column tile) and SCAN_TAILS, fp32 rel <= FP32_TOL; linear_scan_staged
+    (dma_chunked_scan) bitwise equal to linear_scan at nbuf 2 and 4 (and
+    chunk 64 on the odd shape) where D % 4 == 0 (L is split nowhere, so
+    both walk each column in the same order). Returns {kernel: max abs
+    error vs plain}."""
     from accunet_tpu_torch.ops.kernels import scan as S
 
     g = torch.Generator("cuda").manual_seed(10)
     worst, bad = {"linear_scan": 0.0, "linear_scan_staged": 0.0}, []
-    for name, b, l, d in SCAN_STAGES + (("odd", 3, 300, 48),):
+    for name, b, l, d in SCAN_STAGES + (SCAN_CONFIG5, ("odd", 3, 300, 48)) + SCAN_TAILS:
         a, x = scan_inputs(g, b, l, d)
         gy = torch.randn(b, l, d, generator=g, device="cuda")
         h = S.linear_scan(a, x)
         da, db = S.linear_scan_reverse(a, h, gy)
-        staged = {f"nbuf{nb}": S.dma_chunked_scan(a, x, nbuf=nb) for nb in (2, 4)}
+        staged = {f"nbuf{nb}": S.dma_chunked_scan(a, x, nbuf=nb) for nb in (2, 4)} \
+            if d % 4 == 0 else {}
         if name == "odd":
             staged["chunk64"] = S.dma_chunked_scan(a, x, chunk=64, nbuf=3)
         torch.cuda.synchronize()
@@ -1161,11 +1178,11 @@ def check_scan_kernels():
         rel = max(e[1] for e in errs)
         ok = rel <= FP32_TOL and all(equal.values())
         worst["linear_scan"] = max(worst["linear_scan"], max(e[0] for e in errs))
-        worst["linear_scan_staged"] = max(worst["linear_scan_staged"],
-                                          max(rel_err(v, hp)[0] for v in staged.values()))
-        log(f"  {'ok ' if ok else 'BAD'} linear_scan {name:6s} B{b} L{l} D{d}: forward rel "
-            f"{errs[0][1]:.3e}, reverse da {errs[1][1]:.3e} db {errs[2][1]:.3e} (tol "
-            f"{FP32_TOL:g}); staged == linear_scan {equal}")
+        worst["linear_scan_staged"] = max([worst["linear_scan_staged"]]
+                                          + [rel_err(v, hp)[0] for v in staged.values()])
+        log(f"  {'ok ' if ok else 'BAD'} linear_scan {name:9s} B{b} L{l} D{d} ({b * -(-d // 32)} "
+            f"CTAs, {4 if d % 4 else 16}-byte fill): forward rel {errs[0][1]:.3e}, reverse da {errs[1][1]:.3e} db "
+            f"{errs[2][1]:.3e} (tol {FP32_TOL:g}); staged == linear_scan {equal}")
         if not ok:
             bad.append(name)
         del a, x, gy, h, da, db, staged, hp, dap, dbp
@@ -1380,7 +1397,8 @@ def segmamba_train_launches(steps, val_batches):
     """Per Segmamba train step: 16 fused selective-scan forwards (2 layers x
     2 branches x 4 stages) and their 16 fused backwards; per validation
     forward: 16 fused forwards; nothing else of the port's kernels (the
-    standalone scans, linear_scan and its reverse, are on no path)."""
+    standalone linear_scan and its reverse run only on the
+    sequence-parallel route, phase 57)."""
     zero = dict.fromkeys(KERNELS, 0)
     return {"train_steps": {**zero, "selective_scan_fwd": SCANS_PER_FORWARD * steps,
                             "selective_scan_bwd": SCANS_PER_FORWARD * steps},
@@ -1431,16 +1449,18 @@ def time_segmamba(model):
 
 
 def time_scan_kernels():
-    """Phase 14c: at each stage shape, the forward kernel, the reverse kernel
-    and the staged kernel (nbuf 4 and 2) against their plain versions and the
-    least time the card could take (bytes: a, b read and h written, or a, h,
-    g read and da, db written, at 3.35 TB/s; 2 flops a step are far below
-    the FMA peak). No single PyTorch call computes the recurrence."""
+    """Phase 14c: at each stage shape, BASELINE config 5's and the seq=2
+    shards', the forward kernel, the reverse kernel and the staged kernel
+    (nbuf 4 and 2) against their plain versions and the least time the card
+    could take (bytes: a, b read and h written, or a, h, g read and da, db
+    written, at 3.35 TB/s; 2 flops a step are far below the FMA peak), with
+    the scanned tokens a second (B * L / time; bench.py's unit for config 5).
+    No single PyTorch call computes the recurrence."""
     from accunet_tpu_torch.ops.kernels import scan as S
 
     g = torch.Generator("cuda").manual_seed(15)
     times = {}
-    for name, b, l, d in SCAN_STAGES:
+    for name, b, l, d in SCAN_STAGES + (SCAN_CONFIG5,) + SCAN_SHARDS:
         a, x = scan_inputs(g, b, l, d)
         gy = torch.randn(b, l, d, generator=g, device="cuda")
         h = S.linear_scan(a, x)
@@ -1459,10 +1479,12 @@ def time_scan_kernels():
                 k_ms, p_ms = time_ms(run), time_ms(plain, iters=3, warmup=1)
                 bound = n_tensors * tensor_ms
                 times[(kname, name)] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": None,
-                                        "bound_ms": bound, "bound_by": "bytes"}
-                log(f"  {kname:24s} {name} B{b} L{l:5d} D{d:5d}: kernel {k_ms:8.3f} ms   plain "
-                    f"{p_ms:8.3f} ms   bound {bound:7.3f} ms (bytes, {n_tensors} x "
-                    f"{a.numel() * 4 / 1e6:.0f} MB), {100 * bound / k_ms:.1f}% of it")
+                                        "bound_ms": bound, "bound_by": "bytes",
+                                        "mtok_per_s": b * l / k_ms / 1e3}
+                log(f"  {kname:24s} {name:12s} B{b} L{l:5d} D{d:5d}: kernel {k_ms:8.3f} ms   "
+                    f"plain {p_ms:8.3f} ms   bound {bound:7.3f} ms (bytes, {n_tensors} x "
+                    f"{a.numel() * 4 / 1e6:.0f} MB), {100 * bound / k_ms:.1f}% of it, "
+                    f"{b * l / k_ms / 1e3:.1f} Mtok/s")
         del a, x, gy, h
     torch.cuda.empty_cache()
     return times
@@ -4310,6 +4332,11 @@ def main() -> int:
             kernels[-1]["unfused_ms"] = t["unfused_ms"]
             kernels[-1]["by_shape"] = {f"{c} {d}": times[("expand_dw", c, d)]
                                        for c, _ in CNV72_SHAPES for d in ("float32", "bfloat16")}
+        if name in ("linear_scan", "linear_scan_staged"):  # phase 14c's every shape
+            kernels[-1]["by_shape"] = {
+                f"{k} {c}": times[(k, c, "float32")] for c, *_ in SCAN_STAGES + (SCAN_CONFIG5,)
+                + SCAN_SHARDS for k in ((name, "linear_scan_reverse") if name == "linear_scan"
+                                        else (name, "linear_scan_staged_nbuf2"))}
         if name == "linear_scan":
             kernels[-1]["launches_forward"] = launches[path]["linear_scan"]
             kernels[-1]["launches_reverse"] = launches[path]["linear_scan_reverse"]

@@ -1,8 +1,11 @@
 """The port's scan kernels (csrc/linear_scan.cu) against their plain versions
-on the card at small ragged shapes: L not a multiple of the 16-step prefetch
-or of the staged kernel's chunk, D not a multiple of its 32-column tile,
-B > 1; the staged kernel bitwise against linear_scan at every ring depth;
-the autograd function; the wrappers' refusals. The fused selective scan
+on the card: small ragged shapes (L not a multiple of a ring slot's rows, 64
+forward and 48 reverse, or of the staged kernel's chunk, D not a multiple
+of the 32-column tile, B > 1), BASELINE config 5's (8, 3136, 768), D % 4
+!= 0 and an operand that is not 16-byte aligned (both filled by 4-byte
+copies); the staged kernel, the same kernel at a ring the caller chooses,
+bitwise against linear_scan at every ring; the autograd function; the
+wrappers' refusals. The fused selective scan
 (csrc/selective_scan.cu) forward and backward against their plain versions:
 L not a multiple of the chunk, L = 1, L shorter than one chunk, D not a
 multiple of a CTA's d, D or z absent, softplus off, many d-blocks; the
@@ -25,7 +28,8 @@ from accunet_tpu_torch.ops.kernels import selective_scan as SS
 
 pytestmark = pytest.mark.cuda
 
-SHAPES = [(1, 1, 4), (1, 17, 8), (3, 300, 48), (2, 129, 100), (2, 1000, 36)]
+SHAPES = [(1, 1, 4), (1, 17, 8), (3, 300, 48), (2, 129, 100), (2, 1000, 36), (8, 3136, 768),
+          (2, 333, 13), (1, 65, 1)]
 
 
 @pytest.fixture
@@ -61,8 +65,29 @@ def test_linear_scan_kernel(dev, b, l, d):
         _close(got, want)
 
 
+def test_linear_scan_kernel_unaligned_operands(dev):
+    """Operands one float past a 16-byte boundary: the ring fills by 4-byte
+    copies, and h, da, db equal the aligned operands' bitwise."""
+    a, x = _inputs(dev, 2, 200, 40, seed=4)
+    g = torch.randn_like(a)
+    h, (da, db) = S.linear_scan(a, x), S.linear_scan_reverse(a, S.linear_scan(a, x), g)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device=dev)
+        buf[1:] = t.reshape(-1)
+        return buf[1:].view(t.shape)
+
+    ua, ux, ug = shifted(a), shifted(x), shifted(g)
+    assert ua.data_ptr() % 16 and ua.is_contiguous()
+    uh = S.linear_scan(ua, ux)
+    uda, udb = S.linear_scan_reverse(ua, shifted(uh), ug)
+    torch.cuda.synchronize()
+    assert torch.equal(uh, h) and torch.equal(uda, da) and torch.equal(udb, db)
+
+
 @pytest.mark.parametrize("b,l,d", [s for s in SHAPES if s[2] % 4 == 0])
-@pytest.mark.parametrize("chunk,nbuf", [(128, 2), (128, 3), (128, 4), (7, 2), (300, 3)])
+@pytest.mark.parametrize("chunk,nbuf", [(128, 2), (128, 3), (128, 4), (7, 2), (300, 3), (32, 4),
+                                        (1, 2)])
 def test_staged_scan_is_bitwise_linear_scan(dev, b, l, d, chunk, nbuf):
     a, x = _inputs(dev, b, l, d, seed=1)
     before = S.dma_chunked_scan.launches

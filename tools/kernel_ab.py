@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the redesigned kernels (dwconv2d_wgrad, hanc_block, respath_level,
-expand_dw, the selective scan) and the models that run them, for one tree of
-the port.
+expand_dw, the selective scan, the standalone linear scan) and the models
+that run them, for one tree of the port.
 
     python tools/kernel_ab.py [--tag NAME] [--json PATH] [--iters N] [--only KERNEL ...]
                               [--sweep] [--graphs] [--models] [--segmamba] [--contig] [--rh]
@@ -30,6 +30,14 @@ bf16:
     forward (the fused kernel, or in an older tree the glue around the
     linear_scan kernel) and its forward + backward through autograd, with
     the peak memory the forward + backward adds;
+  * linear_scan, linear_scan_reverse and the staged kernel (nbuf 2 and 4)
+    at LINEAR_SCAN (Segmamba b8 224x224's four stages, BASELINE config 5's
+    (8, 3136, 768) and the seq=2 shards of stage 0 and of config 5), a in
+    (0.2, 0.99) and b in (-0.5, 0.5) as bench.py draws them: each beside
+    its plain version and its bytes bound (3 tensors forward, 5 reverse),
+    with Mtok/s (B * L / time), the errors against the plain versions and
+    whether the staged h equals linear_scan's bitwise; the kernel's symbols
+    are the parent's too, so a parent tree on PYTHONPATH runs these rows;
   * with --knunet: selective_scan_fwd (no chunk states) and
     selective_scan_bwd (from the forward's chunk states) at KNUnet b8
     256x256's three SS2D shapes (D 512 / 256 / 128, L 256 / 1024 / 4096, N
@@ -39,7 +47,12 @@ bf16:
     under other splits (channel block, CTAs per block: `wgrad_plan`'s
     overrides), hanc_block at each of its shapes in every tile that holds
     its width (`TILES`), respath_level and expand_dw at each of their shapes
-    in every plan that fits (`PLANS`);
+    in every plan that fits (`PLANS`), the standalone scan's kernel at every
+    ring of LINEAR_SCAN_RINGS (rows a slot, slots) through dma_chunked_scan,
+    each checked bitwise against linear_scan, and its reverse at every ring
+    of LINEAR_SCAN_REVERSE_RINGS (copies of linear_scan.cu with kRevRing
+    replaced, built side by side in build/linear_scan_sweep/), each checked
+    bitwise against linear_scan_reverse;
   * with --models: ACC_UNet b8 224x224 and ACC_UNet_W (3 classes) b2 512x512
     forwards in fp32 and bf16 (W also with the hybrid front half on), and
     the ACC_UNet b8 224x224 fp32 train step;
@@ -79,6 +92,7 @@ import inspect
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -87,7 +101,7 @@ import torch.nn.functional as F
 
 B, HW, NF = 8, 224, 32
 KERNELS = ("dwconv2d_wgrad", "hanc_block", "respath_level", "expand_dw", "selective_scan",
-           "selective_scan_rh")
+           "selective_scan_rh", "linear_scan")
 # name, map side, C
 WGRAD = [("cnv12", HW, 3 * NF), ("cnv52", HW // 16, 48 * NF), ("cnv61", HW // 8, 48 * NF),
          ("cnv72", HW // 4, 136 * NF), ("unext.block1_0", HW // 16, 160),
@@ -107,6 +121,16 @@ RESPATH = [("rspth1.level0", HW, NF, False), ("rspth1.level1", HW, NF, True),
            ("rspth2.level1", HW // 2, 2 * NF, True)]
 # name, x shape (cnv72: cin 128 -> E 4352)
 EXPAND = [("cnv72.b8_224", (B, HW // 4, HW // 4, 4 * NF)), ("cnv72.w_b2_512", (2, 128, 128, 4 * NF))]
+# the standalone scan (name, B, L, D): Segmamba b8 224x224's four stages
+# (D = d_inner * 16), BASELINE config 5's (8, 3136, 768) (bench.py:150-179),
+# and the seq=2 shards of stage 0 and of config 5
+LINEAR_SCAN = tuple((f"stage{i}", B, (HW // 2 >> i) ** 2, 2 * f * 16)
+                    for i, f in enumerate((48, 96, 192, 384))) + (
+    ("config5", B, 3136, 768), ("stage0.seq2", B, 6272, 1536), ("config5.seq2", B, 1568, 768))
+# the rings --sweep gives the standalone scan's kernel: (rows a slot, slots);
+# the forward's through dma_chunked_scan, the reverse's in scratch builds
+LINEAR_SCAN_RINGS = tuple((r, n) for r in (16, 32, 64, 128) for n in (2, 3, 4))
+LINEAR_SCAN_REVERSE_RINGS = tuple((r, n) for r in (16, 32, 48, 64) for n in (2, 3, 4))
 # Segmamba b8 224x224's BiMamba stages: name, L, d_inner (N 16)
 SCAN = [(f"stage{i}", (HW // 2 >> i) ** 2, 2 * f) for i, f in enumerate((48, 96, 192, 384))]
 # the return-hidden scan (name, B, L, D, N): the Spatial-Mamba variant's stages
@@ -254,6 +278,127 @@ def kernel_rows(iters: int, emit, only=KERNELS):
         torch.cuda.empty_cache()
     if "selective_scan" in only:
         scan_rows(iters, emit)
+    if "linear_scan" in only:
+        linear_scan_rows(iters, emit)
+
+
+def linear_scan_inputs(b, l, d, seed=21):
+    """a in (0.2, 0.99) and b in (-0.5, 0.5), as bench.py's config 5 draws
+    them; a cotangent g ~ N(0, 1)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = 0.2 + 0.79 * torch.rand(b, l, d, generator=g, device="cuda")
+    return a, torch.rand(b, l, d, generator=g, device="cuda") - 0.5, \
+        torch.randn(b, l, d, generator=g, device="cuda")
+
+
+def linear_scan_rows(iters: int, emit):
+    """linear_scan, linear_scan_reverse and the staged kernel (nbuf 2 and 4)
+    at LINEAR_SCAN, fp32, beside the plain versions and the bytes bound (3
+    tensors forward, 5 reverse, at 3.35 TB/s); Mtok/s = B * L / time; the
+    errors against the plain versions, and whether the staged h equals the
+    forward's bitwise."""
+    from accunet_tpu_torch.ops.kernels import scan as S
+
+    for name, b, l, d in LINEAR_SCAN:
+        a, x, gy = linear_scan_inputs(b, l, d)
+        tensor_ms = a.numel() * 4 / HBM_BYTES_PER_S * 1e3
+        with torch.inference_mode():
+            h = S.linear_scan(a, x)
+            da, db = S.linear_scan_reverse(a, h, gy)
+            staged = S.dma_chunked_scan(a, x, nbuf=2)
+            hp = S.linear_scan_plain(a, x)
+            dap, dbp = S.linear_scan_grads_plain(a, h, gy)
+            errs = {"h_rel_err": rel_err(h, hp), "da_rel_err": rel_err(da, dap),
+                    "db_rel_err": rel_err(db, dbp), "staged_bitwise": bool(torch.equal(staged, h))}
+            del da, db, staged, hp, dap, dbp
+            torch.cuda.empty_cache()
+            timed = {
+                "linear_scan": (lambda: S.linear_scan(a, x), 3),
+                "linear_scan_reverse": (lambda: S.linear_scan_reverse(a, h, gy), 5),
+                "linear_scan_staged_nbuf2": (lambda: S.dma_chunked_scan(a, x, nbuf=2), 3),
+                "linear_scan_staged_nbuf4": (lambda: S.dma_chunked_scan(a, x, nbuf=4), 3)}
+            plain = {"linear_scan": time_ms(lambda: S.linear_scan_plain(a, x), 3, False),
+                     "linear_scan_reverse": time_ms(
+                         lambda: S.linear_scan_grads_plain(a, h, gy), 3, False)}
+            for kname, (run, n_tensors) in timed.items():
+                ms = time_ms(run, iters)
+                bound = n_tensors * tensor_ms
+                emit({"kernel": kname, "shape": f"{name} B{b} L{l} D{d}", "dtype": "float32",
+                      "ms": ms, "plain_ms": plain.get(kname, plain["linear_scan"]),
+                      "bound_ms": bound, "pct_of_bound": 100 * bound / ms,
+                      "mtok_per_s": b * l / ms / 1e3, **errs})
+        del a, x, gy, h
+        torch.cuda.empty_cache()
+
+
+def linear_scan_reverse_builds():
+    """linear_scan.cu built once per ring of LINEAR_SCAN_REVERSE_RINGS
+    (kRevRing replaced), nvcc in parallel, into build/linear_scan_sweep/:
+    {ring: that library's accunet_linear_scan_reverse}."""
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+
+    from accunet_tpu_torch.ops.kernels import _build
+
+    src = (_build.CSRC / "linear_scan.cu").read_text()
+    old = re.search(r"constexpr Ring kRevRing\{\d+, \d+\};", src).group(0)
+    out = _build.build_dir().parent / "linear_scan_sweep"
+    out.mkdir(parents=True, exist_ok=True)
+
+    def build(ring):
+        cu, so = out / f"reverse_{ring[0]}x{ring[1]}.cu", out / f"reverse_{ring[0]}x{ring[1]}.so"
+        cu.write_text(src.replace(old, f"constexpr Ring kRevRing{{{ring[0]}, {ring[1]}}};"))
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-shared",
+                        str(cu), "-o", str(so)], check=True, capture_output=True)
+        fn = ctypes.CDLL(str(so)).accunet_linear_scan_reverse
+        fn.argtypes, fn.restype = _build.SIGNATURES["accunet_linear_scan_reverse"], ctypes.c_int
+        return fn
+
+    with ThreadPoolExecutor(8) as pool:
+        return dict(zip(LINEAR_SCAN_REVERSE_RINGS, pool.map(build, LINEAR_SCAN_REVERSE_RINGS)))
+
+
+def linear_scan_sweep_rows(iters: int, emit):
+    """The standalone scan's kernel at LINEAR_SCAN in every ring of
+    LINEAR_SCAN_RINGS, forward, through dma_chunked_scan (the entry that
+    takes the ring from its caller), each checked bitwise against
+    linear_scan; its reverse in every ring of LINEAR_SCAN_REVERSE_RINGS
+    (linear_scan_reverse_builds), each checked bitwise against
+    linear_scan_reverse."""
+    from accunet_tpu_torch.ops.kernels import _build
+    from accunet_tpu_torch.ops.kernels import scan as S
+
+    reverse = linear_scan_reverse_builds()
+    for name, b, l, d in LINEAR_SCAN:
+        a, x, gy = linear_scan_inputs(b, l, d)
+        tensor_ms = a.numel() * 4 / HBM_BYTES_PER_S * 1e3
+        with torch.inference_mode():
+            h = S.linear_scan(a, x)
+            want = S.linear_scan_reverse(a, h, gy)
+            for chunk, nbuf in LINEAR_SCAN_RINGS:
+                same = torch.equal(S.dma_chunked_scan(a, x, chunk, nbuf), h)
+                ms = time_ms(lambda: S.dma_chunked_scan(a, x, chunk, nbuf), iters)
+                bound = 3 * tensor_ms
+                emit({"kernel": "linear_scan_staged",
+                      "shape": f"{name} B{b} L{l} D{d} chunk{chunk} nbuf{nbuf}",
+                      "dtype": "float32", "ms": ms, "bound_ms": bound,
+                      "pct_of_bound": 100 * bound / ms, "bitwise_linear_scan": same})
+            da, db = torch.empty_like(a), torch.empty_like(a)
+            for (chunk, nbuf), fn in reverse.items():
+                def run():
+                    _build.check(fn(a.data_ptr(), h.data_ptr(), gy.data_ptr(), da.data_ptr(),
+                                    db.data_ptr(), b, l, d, _build.stream_of(a)),
+                                 "accunet_linear_scan_reverse")
+                run()
+                same = torch.equal(da, want[0]) and torch.equal(db, want[1])
+                ms = time_ms(run, iters)
+                bound = 5 * tensor_ms
+                emit({"kernel": "linear_scan_reverse",
+                      "shape": f"{name} B{b} L{l} D{d} chunk{chunk} nbuf{nbuf}",
+                      "dtype": "float32", "ms": ms, "bound_ms": bound,
+                      "pct_of_bound": 100 * bound / ms, "bitwise_linear_scan_reverse": same})
+        del a, x, gy, h, want, da, db
+        torch.cuda.empty_cache()
 
 
 def bimamba_operands(g, l, d, n=16):
@@ -684,6 +829,8 @@ def main(argv=None) -> int:
         knunet_rows(args.iters, emit)
     if args.sweep:
         sweep_rows(args.iters, emit, only)
+        if "linear_scan" in only:
+            linear_scan_sweep_rows(args.iters, emit)
     GRAPHS = False
     if args.rh:
         spm_rows(args.iters, emit)
